@@ -1,0 +1,120 @@
+"""State carried between the JAX package and the port.
+
+The JAX package's state is a tree of NamedTuples of arrays. Given as nested
+dicts of numpy arrays keyed by the JAX field names (an SE3 is
+``{"q": ..., "t": ...}``, a Camera is its constructor fields, a Config is
+``dataclasses.asdict``), these functions build the port's objects on a
+device, and ``to_numpy`` turns the port's objects back into such dicts. This
+is what lets a test start both implementations from the same world state.
+
+Integer arrays become int64 tensors here and int32 arrays on the way back
+(the JAX package's index type); floats are float32. Keys the port has no
+use for (the JAX world's PRNG key and initialization buffers) are ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from svo_pro_universal_tpu_torch.cameras.projections import Camera
+from svo_pro_universal_tpu_torch.common.frame import FrameState
+from svo_pro_universal_tpu_torch.common.point import LandmarkPool
+from svo_pro_universal_tpu_torch.config import Config
+from svo_pro_universal_tpu_torch.frontend.map import KeyframeRing
+from svo_pro_universal_tpu_torch.frontend.pipeline import WorldState
+from svo_pro_universal_tpu_torch.utils.transform import SE3
+
+
+def tensor(a, device=None) -> torch.Tensor:
+    """numpy → tensor: integers to int64, floats to float32, bools kept."""
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        t = torch.from_numpy(a.copy())
+    elif np.issubdtype(a.dtype, np.integer):
+        t = torch.from_numpy(a.astype(np.int64))
+    else:
+        t = torch.from_numpy(a.astype(np.float32))
+    return t.to(device)
+
+
+def se3(d: Mapping, device=None) -> SE3:
+    return SE3(tensor(d["q"], device), tensor(d["t"], device))
+
+
+def camera(d: Mapping, device=None) -> Camera:
+    return Camera(int(d["projection"]), int(d["distortion"]),
+                  np.array(d["intrinsics"], np.float32),
+                  np.array(d["dist_params"], np.float32),
+                  int(d["width"]), int(d["height"]), d.get("label", "cam"),
+                  device=device)
+
+
+def config(d: Mapping) -> Config:
+    """A Config with the field values of ``dataclasses.asdict(jax_cfg)``."""
+    cfg = Config()
+    for name, val in d.items():
+        cur = getattr(cfg, name)
+        if dataclasses.is_dataclass(cur):
+            for k, v in val.items():
+                setattr(cur, k, v)
+        else:
+            setattr(cfg, name, val)
+    return cfg
+
+
+def frame(d: Mapping, device=None) -> FrameState:
+    return FrameState(**{
+        k: se3(d[k], device) if k in ("T_cam_world", "T_cam_body")
+        else tensor(d[k], device) for k in FrameState._fields})
+
+
+def ring(d: Mapping, device=None) -> KeyframeRing:
+    return KeyframeRing(frame(d["frames"], device),
+                        tensor(d["valid"], device),
+                        tensor(d["last_added"], device))
+
+
+def pool(d: Mapping, device=None) -> LandmarkPool:
+    return LandmarkPool(**{k: tensor(d[k], device)
+                           for k in LandmarkPool._fields})
+
+
+def world(d: Mapping, device=None) -> WorldState:
+    """A port WorldState from a JAX ``WorldState`` dict."""
+    return WorldState(
+        stage=int(d["stage"]),
+        ring=ring(d["ring"], device),
+        pool=pool(d["pool"], device),
+        last_frame=frame(d["last_frame"], device),
+        T_rel_prev=se3(d["T_rel_prev"], device),
+        depth_state=tensor(d["depth_state"], device),
+        frames_since_kf=int(d["frames_since_kf"]),
+        prev_n_tracked=int(d["prev_n_tracked"]),
+        reloc_trials=int(d["reloc_trials"]),
+        trace_q=tensor(d["trace_q"], device),
+        trace_t=tensor(d["trace_t"], device),
+        trace_meta=np.asarray(d["trace_meta"], np.float32).copy(),
+        trace_ptr=int(d["trace_ptr"]))
+
+
+def to_numpy(obj: Any) -> Any:
+    """Port object → nested dict of numpy arrays under the JAX field names
+    (integer tensors as int32)."""
+    if isinstance(obj, torch.Tensor):
+        a = obj.detach().cpu().numpy()
+        return a.astype(np.int32) if a.dtype == np.int64 else a
+    if isinstance(obj, Camera):
+        return dict(projection=int(obj.projection),
+                    distortion=int(obj.distortion),
+                    intrinsics=to_numpy(obj.intrinsics),
+                    dist_params=to_numpy(obj.dist_params),
+                    width=obj.width, height=obj.height, label=obj.label)
+    if isinstance(obj, Config):
+        return dataclasses.asdict(obj)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return {k: to_numpy(v) for k, v in zip(obj._fields, obj)}
+    return obj
