@@ -12,11 +12,17 @@ line each:
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             at the shapes the tracking step gives it: CUDA-event times
             (median), the byte/operation bound, and one PyTorch library call
-            for the gathers.
+            for the gathers. align_level runs on two rendered views of the
+            plane (levels 4..2, each level from the same inputs for both)
+            through four camera models with the prior and alpha/beta off
+            and on (N = 360), two cameras on one body, and N = 768: pose
+            within 1e-4 rad / 1e-4·depth, n_tracked equal.
 4. slice    ≥ 60 frames of a textured plane: TRACKING from frame 0 on,
-            n_tracked ≥ quality_min_fts, ≥ 2 keyframes, every kernel
-            launched on the path (counts reset just before the run);
-            frames/s and per-stage ms (CUDA events).
+            n_tracked ≥ quality_min_fts, ≥ 2 keyframes, the gathers
+            launched on the path and align_level once per pyramid level of
+            every sparse alignment, the standalone fused_evaluate not at
+            all (counts reset just before the run); frames/s and per-stage
+            ms (CUDA events).
    profile  6 frames under torch.profiler: device busy ms and kernel
             launches per frame, idle share, host syncs per frame.
 5. cpu      the same first frames through the port on the CPU; the poses
@@ -37,12 +43,15 @@ import time
 import numpy as np
 import torch
 
-from svo_pro_universal_tpu_torch.cameras.projections import Camera
+from svo_pro_universal_tpu_torch.cameras.projections import (
+    Camera, DistortionModel, ProjectionModel)
 from svo_pro_universal_tpu_torch.config import Config
 from svo_pro_universal_tpu_torch.frontend.frame_handler import Stage
 from svo_pro_universal_tpu_torch.frontend.pipeline import DevicePipelineMono
 from svo_pro_universal_tpu_torch.ops import _cuda, cuda_align, cuda_tiles
+from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
 from svo_pro_universal_tpu_torch.testing import synthetic as syn
+from svo_pro_universal_tpu_torch.utils.transform import se3_exp
 
 W, H = 752, 480
 INTR = (460.0, 460.0, 376.0, 240.0)
@@ -50,6 +59,8 @@ PLANE_Z = 2.5
 N_FRAMES = 64
 N_CPU_FRAMES = 5
 POSE_TOL_M = 5e-3
+ALIGN_ROT_TOL = 1e-4       # rad, align_level vs its plain version
+ALIGN_TRANS_TOL = 1e-4     # × depth
 
 # peak rates by card name (NVIDIA data sheets; dense, no sparsity)
 _BANDWIDTH = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
@@ -232,8 +243,119 @@ def kernel_cases(bw: float) -> tuple[list, dict]:
             else "operations"))
     # the representative shape of each kernel on the main path
     main = {"gather_tiles": cases[1], "gather_tiles_ring": cases[6],
-            "fused_evaluate": cases[7]}
+            "fused_evaluate": cases[7],
+            "align_level": align_cases(bw, cases)}
     return cases, main
+
+
+ALIGN_CAMERAS = {
+    "pinhole": lambda: Camera.pinhole(*INTR, W, H),
+    "fisheye_equidistant": lambda: Camera(
+        ProjectionModel.FISHEYE_EQUIDISTANT, DistortionModel.EQUIDISTANT,
+        [300.0, 300.0, 376.0, 240.0], [0.02, -0.01, 0.003, -0.001], W, H),
+    "omni_radtan": lambda: Camera(
+        ProjectionModel.OMNI, DistortionModel.RADTAN,
+        [874.0, 874.0, 376.0, 240.0], [-0.05, 0.01, 0.001, -0.001, 0.9], W,
+        H),
+    "pinhole_atan": lambda: Camera.pinhole(
+        *INTR, W, H, distortion=DistortionModel.ATAN, dist_params=[0.9]),
+}
+
+
+# (label, [(camera, T_cam_body or None)], prior and alpha/beta on, grid):
+# every camera model with the extras off and on, two cameras on one body,
+# and N = 768, beyond the 560 features the cluster stages
+ALIGN_CASES = [
+    (name, [(name, None)], extras, (24, 15))
+    for name in ALIGN_CAMERAS for extras in (False, True)] + [
+    ("pinhole+fisheye_equidistant", [
+        ("pinhole", None),
+        ("fisheye_equidistant", syn.pose(0.1, 0.0, 0.0, 0.0, 0.3, 0.0))],
+     False, (24, 15)),
+    ("pinhole_n768", [("pinhole", None)], False, (32, 24)),
+]
+
+
+def align_cases(bw: float, cases: list, dev=torch.device("cuda")) -> dict:
+    """align_level against align_level_plain on two rendered views of the
+    plane (body at frames 0 and 2 of the slice's motion), 360 features a
+    camera on a grid (768 in one case), each of levels 4..2 started from
+    the same state for both; the next level starts from the plain
+    version's result. The first case (pinhole, no prior, no alpha/beta,
+    N = 360) is the main path's: its timing is the summary's (mean over
+    the three levels, per launch). max_abs_err is the largest pose gap,
+    rotation (rad) or translation (m)."""
+    T_prior = se3_exp(torch.tensor([0.02, 0.0, 0.0, 0.0, 0.001, 0.0],
+                                   device=dev))
+    summary = None
+    for label, cams_spec, extras, grid in ALIGN_CASES:
+        gain, offset = (1.08, -6.0) if extras else (1.0, 0.0)
+        inputs = [syn.align_problem(ALIGN_CAMERAS[name](), gt_pose(0),
+                                    gt_pose(2), INTR, PLANE_Z, 5, grid=grid,
+                                    gain=gain, offset=offset, T_cam_body=Tcb,
+                                    device=dev)
+                  for name, Tcb in cams_spec]
+        opts = sia.SparseImgAlignOptions(
+            estimate_alpha=extras, estimate_beta=extras,
+            prior_lambda_rot=0.1 if extras else 0.0,
+            prior_lambda_trans=0.05 if extras else 0.0)
+        timed = summary is None
+        pre = [sia.precompute_base(inp, False) for inp in inputs]
+        state = sia.make_state(device=dev)
+        depth = max(float(inp.depth_ref.max()) for inp in inputs)
+        levels = []
+        for level in range(opts.max_level, opts.min_level - 1, -1):
+            cams = sia.level_cameras(inputs, pre, state, opts, level)
+            args = (cams, state, opts, level, T_prior)
+            got = cuda_align.align_level(*args)
+            want = cuda_align.align_level_plain(*args)
+            torch.cuda.synchronize()
+            rot = syn.rotation_gap(got[0].T_icur_iref.q,
+                                   want[0].T_icur_iref.q)
+            trans = float((got[0].T_icur_iref.t
+                           - want[0].T_icur_iref.t).norm())
+            n_k, n_p = int(got[2]), int(want[2])
+            it = int(got[3])
+            line = dict(level=level, rot_err_rad=rot, trans_err_m=trans,
+                        n_tracked=n_k, n_tracked_plain=n_p, iters=it,
+                        iters_plain=int(want[3]),
+                        alpha=[float(got[0].alpha), float(want[0].alpha)],
+                        beta=[float(got[0].beta), float(want[0].beta)])
+            if (rot > ALIGN_ROT_TOL or trans > ALIGN_TRANS_TOL * depth
+                    or n_k != n_p):
+                fail(f"align_level {label} extras={extras}: kernel vs "
+                     f"plain {line}")
+            if timed:
+                n = sum(lc.xyz_ref.shape[0] for lc in cams)
+                R, T = cams[0].tb.shape_rt
+                area = opts.patch_size ** 2
+                nbytes = (n * (R * T * 4 + area * 9 * 4 + 3 * 4 + 4 * 8 + 1)
+                          + 16 * 4 * len(cams) + 9 * 4 + 12 * 4)
+                flops = (1 + it) * n * area * (6 + 3 + 2 * 64 + 2 * 8 + 3)
+                line |= dict(
+                    ms=cuda_ms(lambda: cuda_align.align_level(*args)),
+                    plain_ms=cuda_ms(
+                        lambda: cuda_align.align_level_plain(*args),
+                        reps=1, samples=3),
+                    bytes=nbytes, flops=flops,
+                    bound_ms=max(nbytes / bw, flops / _FP32_FLOPS) * 1e3,
+                    bound_by="bytes" if nbytes / bw >= flops / _FP32_FLOPS
+                    else "operations")
+            levels.append(line)
+            state = want[0]
+        case = dict(name="align_level", case=label, prior_alpha_beta=extras,
+                    n=sum(int(inp.px_ref.shape[0]) for inp in inputs),
+                    depth_m=depth,
+                    max_abs_err=max(max(lv["rot_err_rad"], lv["trans_err_m"])
+                                    for lv in levels),
+                    levels=levels)
+        if timed:
+            case |= {k: float(np.mean([lv[k] for lv in levels]))
+                     for k in ("ms", "plain_ms", "bound_ms")}
+            case |= dict(bound_by=levels[-1]["bound_by"], library_ms=None)
+            summary = case
+        cases.append(case)
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +428,17 @@ def profile_frames(frames: list) -> dict:
     launch_ms = host_ms({"cudaLaunchKernel", "cudaLaunchKernelExC",
                          "cuLaunchKernel", "cuLaunchKernelEx"})
     n = len(frames)
+    # the port's own __global__ functions: launches per frame and device
+    # ms per launch (the gathers share gather_tiles_kernel)
+    port = {}
+    for e in kernels:
+        for fn in ("gather_tiles_kernel", "fused_evaluate_partials",
+                   "fused_evaluate_reduce", "align_level_kernel"):
+            if fn in e.key and e.count:
+                c, t = port.get(fn, (0, 0.0))
+                port[fn] = (c + e.count, t + e.self_device_time_total)
+    port = {k: {"launches_per_frame": c / n, "device_ms_per_launch":
+                t / 1e3 / c} for k, (c, t) in port.items()}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode(1)
@@ -321,7 +454,7 @@ def profile_frames(frames: list) -> dict:
             "kernel_launches_per_frame": sum(e.count for e in kernels) / n,
             "host_sync_wait_ms_per_frame": sync_ms / n,
             "host_launch_api_ms_per_frame": launch_ms / n,
-            "host_syncs_per_frame": syncs / n}
+            "host_syncs_per_frame": syncs / n, "port_kernels": port}
 
 
 def main() -> None:
@@ -367,6 +500,7 @@ def main() -> None:
     ate = float(np.sqrt(np.mean(np.sum((est_pos - gt_pos) ** 2, -1))))
     path = float(np.linalg.norm(np.diff(gt_pos, axis=0), axis=-1).sum())
     n_kf = int(meta[1:, 2].sum())
+    n_align = sum(1 for nm, _, _ in events if nm == "_stage_align")
     slice_line = {
         "phase": "slice", "card": smi, "frames": N_FRAMES,
         "resolution": [W, H], "fps_steady": float(len(steady) / steady.sum()),
@@ -375,7 +509,7 @@ def main() -> None:
         "stage_ms_per_call": stage_ms, "keyframes_after_first": n_kf,
         "n_tracked_min": int(meta[:, 1].min()),
         "n_tracked_mean": float(meta[:, 1].mean()),
-        "launches": counts,
+        "launches": counts, "sparse_alignments": n_align,
         "launches_per_frame": {k: v / N_FRAMES for k, v in counts.items()},
         "ate_m": ate, "path_m": path,
         "peak_mem_MB": torch.cuda.max_memory_allocated() / 2 ** 20}
@@ -386,8 +520,19 @@ def main() -> None:
         fail(f"n_tracked fell to {meta[:, 1].min()}")
     if n_kf < 2:
         fail(f"only {n_kf} keyframes selected after the first")
-    if min(counts.values()) <= 0:
-        fail(f"a kernel was not launched on the main path: {counts}")
+    # the gathers run on the path; align_level once per pyramid level of
+    # every sparse alignment; the standalone fused evaluate not at all (its
+    # device code runs inside align_level)
+    ia = pipe.cfg.img_align
+    n_levels = ia.max_level - ia.min_level + 1
+    if min(counts["gather_tiles"], counts["gather_tiles_ring"]) <= 0:
+        fail(f"a gather kernel was not launched on the main path: {counts}")
+    if n_align == 0 or counts["align_level"] != n_levels * n_align:
+        fail(f"align_level launched {counts['align_level']} times for "
+             f"{n_align} sparse alignments of {n_levels} levels")
+    if counts["fused_evaluate"] != 0:
+        fail(f"fused_evaluate launched {counts['fused_evaluate']} times on "
+             "the path: the per-iteration evaluates should be gone")
     # a gross-error check: the fronto-parallel plane leaves lateral motion
     # and rotation nearly ambiguous, so the bound is loose; the CPU phase
     # below is the tight check
@@ -410,13 +555,17 @@ def main() -> None:
     kernels = []
     for k in _cuda.KERNELS:
         c = main_cases[k.name]
-        kernels.append(dict(
+        entry = dict(
             name=k.name, route="cuda",
             source=f"svo_pro_universal_tpu_torch/csrc/{k.source}",
             replaces=k.replaces, launches=counts[k.name],
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=c["library_ms"]))
+            bound_by=c["bound_by"], library_ms=c["library_ms"])
+        if k.name == "fused_evaluate":
+            entry["on_path"] = ("held in the kernels phase; on the path its "
+                                "per-feature evaluate runs inside align_level")
+        kernels.append(entry)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

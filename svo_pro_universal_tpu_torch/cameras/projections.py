@@ -247,7 +247,9 @@ def project_jacobian(cam: Camera, xyz: torch.Tensor) -> torch.Tensor:
     flat = xyz.reshape(-1, 3)
 
     def proj1(x):
-        return project(cam, x)[0]
+        # one point as a [1, 3] batch: on 0-dim values torch.func turns
+        # `python float + tensor` into float64
+        return project(cam, x[None])[0][0]
 
     J = torch.func.vmap(torch.func.jacfwd(proj1))(flat)
     return J.reshape(xyz.shape[:-1] + (2, 3))

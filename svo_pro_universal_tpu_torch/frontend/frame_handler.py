@@ -72,14 +72,26 @@ def _feature_world_points(frame: FrameState, ring: KeyframeRing,
     return xyz, has_lm | has_seed
 
 
+def resolve_device(device) -> torch.device:
+    """``cuda`` unless the caller asks for another device; raises when CUDA
+    is requested and no card is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port runs on the card by default and no CUDA device is "
+            "present; pass device='cpu' to run on the CPU")
+    return dev
+
+
 class FrameHandlerMono:
-    """Mono stage programs on one device (reference FrameHandlerMono)."""
+    """Mono stage programs on one device (reference FrameHandlerMono); on
+    the card unless ``device`` says otherwise."""
 
     def __init__(self, cfg: Config, cam: proj.Camera,
                  T_cam_body: Optional[SE3] = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.cam = cam.to(self.device)
         if T_cam_body is None:
             T_cam_body = SE3.identity(device=self.device)

@@ -30,7 +30,7 @@ from svo_pro_universal_tpu_torch.common.point import (
     LandmarkPool, add_observations, allocate, make_pool)
 from svo_pro_universal_tpu_torch.config import Config
 from svo_pro_universal_tpu_torch.frontend.frame_handler import (
-    FrameHandlerMono, Stage)
+    FrameHandlerMono, Stage, resolve_device)
 from svo_pro_universal_tpu_torch.frontend.map import (
     KeyframeRing, closest_keyframe_slot, insert_keyframe, make_ring,
     ring_frame)
@@ -56,17 +56,6 @@ class WorldState(NamedTuple):
     trace_t: torch.Tensor       # [CAP, 3] T_world_cam translation (device)
     trace_meta: np.ndarray      # [CAP, 4] (stage, n_tracked, is_kf, ts)
     trace_ptr: int
-
-
-def resolve_device(device) -> torch.device:
-    """``cuda`` unless the caller asks for another device; raises when CUDA
-    is requested and no card is present."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "DevicePipelineMono runs on the card by default and no CUDA "
-            "device is present; pass device='cpu' to run on the CPU")
-    return dev
 
 
 class DevicePipelineMono(FrameHandlerMono):

@@ -8,10 +8,10 @@ illumination (alpha, beta); the residual per patch pixel is
 inverse-compositional Jacobian are cached once per pyramid level;
 coarse-to-fine over levels.
 
-Each evaluate goes through ``cuda_align.fused_evaluate`` (CUDA kernel 3 on
-the card, its plain version on the CPU). The LM keep-best loop is the JAX
-``lax.while_loop`` run for the fixed ``max_iter`` with a ``done`` mask that
-freezes the state, so it needs no host read per iteration.
+Each pyramid level runs through ``cuda_align.align_level``: on the card one
+cluster kernel runs the level's whole LM keep-best loop; on the CPU its plain
+version is the JAX ``lax.while_loop`` run for the fixed ``max_iter`` with a
+``done`` mask that freezes the state. Neither reads the device from the host.
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ import torch
 from svo_pro_universal_tpu_torch.cameras import projections as proj
 from svo_pro_universal_tpu_torch.ops import cuda_align
 from svo_pro_universal_tpu_torch.ops import tiles as tl
+from svo_pro_universal_tpu_torch.ops.cuda_align import AlignState
 from svo_pro_universal_tpu_torch.utils.transform import (
-    SE3, quat_to_matrix, se3_exp, se3_log, skew)
+    SE3, quat_to_matrix, skew)
 
 CUR_TILE = 24     # per-feature current-image tile (patch 4 + ~±9px margin)
 REF_TILE = 12     # reference patch-with-border tile
@@ -53,12 +54,6 @@ class CameraInput(NamedTuple):
     valid: torch.Tensor       # [N] bool
     T_cam_body: SE3
     cam: proj.Camera
-
-
-class AlignState(NamedTuple):
-    T_icur_iref: SE3
-    alpha: torch.Tensor
-    beta: torch.Tensor
 
 
 class AlignStats(NamedTuple):
@@ -164,50 +159,41 @@ def compute_residuals(inp: CameraInput, tb: tl.TileBatch,
     return cur * (1.0 + alpha) + beta - ref_patch, visible
 
 
-def _state_update(state: AlignState, dx: torch.Tensor) -> AlignState:
-    """Reference update rule (sparse_img_align_base.cpp:64-75)."""
-    T = state.T_icur_iref.compose(se3_exp(-dx[:6])).normalized()
-    denom = 1.0 + dx[6]
-    return AlignState(T, (state.alpha - dx[6]) / denom,
-                      (state.beta - dx[7]) / denom)
-
-
-def _select(cond: torch.Tensor, a: AlignState, b: AlignState) -> AlignState:
-    return AlignState(a.T_icur_iref.where(cond, b.T_icur_iref),
-                      torch.where(cond, a.alpha, b.alpha),
-                      torch.where(cond, a.beta, b.beta))
-
-
 def evaluate_camera(inp: CameraInput, cache, st: AlignState, level: int,
                     P: int):
     """One camera's normal system at state ``st`` through the fused
-    evaluate (CUDA kernel 3 on the card). ``cache`` is (xyz_ref, ref_patch,
-    jac, ok, cur TileBatch) of the level. Returns (H, g, chi2, n_visible)
-    before the fixed-parameter, normalization and prior terms."""
+    evaluate (its CUDA kernel on the card). ``cache`` is (xyz_ref,
+    ref_patch, jac, ok, cur TileBatch) of the level. Returns (H, g, chi2,
+    n_visible) before the fixed-parameter, normalization and prior terms.
+    ``run`` evaluates inside ``cuda_align.align_level`` instead; this is
+    the standalone evaluate the tests hold against the JAX one."""
     xyz_ref, ref_patch, jac, ok, tb = cache
-    f32 = torch.float32
-    scale = 1.0 / (1 << level)
-    T_cur_ref = (inp.T_cam_body.compose(st.T_icur_iref)
-                 .compose(inp.T_cam_body.inverse()))
-    xyz_cur = T_cur_ref.apply(xyz_ref)
-    uv_cur, _ = proj.project(inp.cam, xyz_cur)
-    cpy = (P - 1) / 2.0
-    ys0 = uv_cur[:, 1] * scale - cpy       # patch pixel (0, 0)
-    xs0 = uv_cur[:, 0] * scale - cpy
-    ty = ys0 - tb.y0.to(f32)
-    tx = xs0 - tb.x0.to(f32)
-    R, T = tb.shape_rt
-    eps = 1e-6
-    lh = (tb.lh - 1).to(f32) - eps
-    lw = (tb.lw - 1).to(f32) - eps
-    vis = ((ty >= 0) & (ty + (P - 1) <= R - 1 + eps)
-           & (tx >= 0) & (tx + (P - 1) <= T - 1 + eps)
-           & (ys0 >= 0) & (ys0 + (P - 1) <= lh)
-           & (xs0 >= 0) & (xs0 + (P - 1) <= lw)
-           & (xyz_cur[:, 2] > 0.0))
-    ab = torch.stack([st.alpha, st.beta]).to(f32)
-    return cuda_align.fused_evaluate(tb.tiles, ty, tx, (vis & ok).to(f32),
-                                     ref_patch, jac, ab, P)
+    lc = cuda_align.LevelCamera(inp.cam, inp.T_cam_body, xyz_ref, ref_patch,
+                                jac, ok, tb)
+    ty, tx, w = cuda_align.patch_origins(lc, st.T_icur_iref, level, P)
+    ab = torch.stack([st.alpha, st.beta]).to(torch.float32)
+    return cuda_align.fused_evaluate(tb.tiles, ty, tx, w, ref_patch, jac, ab,
+                                     P)
+
+
+def level_cameras(inputs: Sequence[CameraInput], pre: list,
+                  state: AlignState, opts: SparseImgAlignOptions,
+                  level: int) -> list[cuda_align.LevelCamera]:
+    """One level's inputs to ``align_level``, per camera: the templates and
+    Jacobians, and the cur tiles cut around the features projected at
+    ``state``. ``pre`` holds each camera's ``precompute_base``."""
+    cams = []
+    for inp, (xyz_ref, J_proj) in zip(inputs, pre):
+        ref_patch, jac, ok = precompute_level(
+            inp, level, opts.patch_size, J_proj, opts.estimate_alpha,
+            opts.estimate_beta)
+        T_cur_ref0 = (inp.T_cam_body.compose(state.T_icur_iref)
+                      .compose(inp.T_cam_body.inverse()))
+        tb = extract_cur_tiles(inp, xyz_ref, T_cur_ref0, level)
+        cams.append(cuda_align.LevelCamera(
+            inp.cam, inp.T_cam_body, xyz_ref, ref_patch, jac,
+            ok & inp.valid, tb))
+    return cams
 
 
 def run(inputs: Sequence[CameraInput], state0: AlignState,
@@ -215,91 +201,20 @@ def run(inputs: Sequence[CameraInput], state0: AlignState,
         ) -> tuple[AlignState, AlignStats]:
     """Coarse-to-fine sparse image alignment over all cameras, with the
     optional prior on T_icur_iref weighted by prior_lambda_{rot,trans} × the
-    max H diagonal (reference applyPrior :77-110)."""
+    max H diagonal (reference applyPrior :77-110). Each level is one
+    ``cuda_align.align_level`` call: one kernel launch on the card."""
     dev = inputs[0].px_ref.device
-    f32 = torch.float32
     pre = [precompute_base(inp, opts.use_distortion_jacobian)
            for inp in inputs]
     state = state0
     total_iters = torch.zeros((), dtype=torch.long, device=dev)
-    chi2 = torch.zeros((), dtype=f32, device=dev)
+    chi2 = torch.zeros((), dtype=torch.float32, device=dev)
     n_tracked = torch.zeros((), dtype=torch.long, device=dev)
-    P = opts.patch_size
-    i8 = torch.arange(8, device=dev)      # built on the device: no copy
-    fixed = (((i8 == 6) & (not opts.estimate_alpha))
-             | ((i8 == 7) & (not opts.estimate_beta)))
-    use_prior = T_prior is not None and (opts.prior_lambda_rot > 0
-                                         or opts.prior_lambda_trans > 0)
-
     for level in range(opts.max_level, opts.min_level - 1, -1):
-        caches = []
-        for inp, (xyz_ref, J_proj) in zip(inputs, pre):
-            ref_patch, jac, ok = precompute_level(
-                inp, level, P, J_proj, opts.estimate_alpha,
-                opts.estimate_beta)
-            T_cur_ref0 = (inp.T_cam_body.compose(state.T_icur_iref)
-                          .compose(inp.T_cam_body.inverse()))
-            tb = extract_cur_tiles(inp, xyz_ref, T_cur_ref0, level)
-            caches.append((xyz_ref, ref_patch, jac, ok & inp.valid, tb))
-
-        def evaluate(st: AlignState):
-            H = torch.zeros((8, 8), dtype=f32, device=dev)
-            g = torch.zeros((8,), dtype=f32, device=dev)
-            c2 = torch.zeros((), dtype=f32, device=dev)
-            nm = torch.zeros((), dtype=torch.long, device=dev)
-            for inp, cache in zip(inputs, caches):
-                Hc, gc, c2c, nmc = evaluate_camera(inp, cache, st, level, P)
-                H = H + Hc
-                g = g + gc
-                c2 = c2 + c2c
-                nm = nm + nmc.long()
-            # parameters not estimated: H[i, i] = 1 and g[i] = 0
-            H = torch.where(torch.diag(fixed), 1.0, H)
-            g = torch.where(fixed, 0.0, g)
-            c2 = c2 / torch.clamp(nm, min=1)
-            if use_prior:
-                e = se3_log(st.T_icur_iref.inverse().compose(T_prior))
-                d = torch.diagonal(H)
-                h_t = torch.clamp(torch.max(torch.abs(d[:3])), min=1.0)
-                h_r = torch.clamp(torch.max(torch.abs(d[3:6])), min=1.0)
-                zero3 = torch.zeros(3, dtype=f32, device=dev)
-                lam = torch.cat([
-                    (zero3 + opts.prior_lambda_trans) * h_t,
-                    (zero3 + opts.prior_lambda_rot) * h_r,
-                    torch.zeros(2, dtype=f32, device=dev)])
-                e8 = torch.cat([e, torch.zeros(2, dtype=f32, device=dev)])
-                H = H + torch.diag(lam)
-                g = g - lam * e8
-                c2 = c2 + torch.sum(lam * e8 * e8)
-            return H, g, c2, nm
-
-        # LM-damped GN with keep-best, ONE evaluate per iteration
-        H, g, best_chi2, n_tracked = evaluate(state)
-        best_st = state
-        st = state
-        mu = torch.full((), 0.1, dtype=f32, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
-        for _ in range(opts.max_iter):
-            active = ~done
-            diag = torch.diagonal(H)
-            Hd = H + torch.diag(mu * diag + 1e-8)
-            dx = tl.solve_psd_small(Hd, g, damping=0.0)
-            dx = torch.where(torch.isfinite(dx), dx, 0.0)
-            cand = _state_update(st, dx)
-            H_new, g_new, c2_new, _ = evaluate(cand)
-            improved = c2_new < best_chi2
-            take = active & improved
-            best_st = _select(take, cand, best_st)
-            best_chi2 = torch.where(take, c2_new, best_chi2)
-            mu = torch.where(active, torch.where(improved, mu * 0.5,
-                                                 mu * 4.0), mu)
-            st = _select(take, cand, st)
-            H = torch.where(take, H_new, H)
-            g = torch.where(take, g_new, g)
-            total_iters = total_iters + active.long()
-            done = done | (torch.sum(dx[:6] ** 2) < opts.min_update_squared)
-        state = best_st
-        chi2 = best_chi2
+        cams = level_cameras(inputs, pre, state, opts, level)
+        state, chi2, n_tracked, iters = cuda_align.align_level(
+            cams, state, opts, level, T_prior)
+        total_iters = total_iters + iters
     return state, AlignStats(chi2, n_tracked, total_iters)
 
 

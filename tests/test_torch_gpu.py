@@ -3,13 +3,19 @@
 machine (whose Python has no JAX, hence no conftest):
 ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q``.
 Tolerances: the gathers are copies (exact); the fused evaluate those of
-tests/test_torch_kernels.py."""
+tests/test_torch_kernels.py; the align level (each of levels 4..2 from the
+same inputs) rotation ≤ 1e-4 rad, translation ≤ 1e-4·depth, n_tracked
+equal."""
 
 import numpy as np
 import pytest
 import torch
 
+from svo_pro_universal_tpu_torch.cameras.projections import Camera
 from svo_pro_universal_tpu_torch.ops import cuda_align, cuda_tiles
+from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
+from svo_pro_universal_tpu_torch.testing import synthetic as syn
+from svo_pro_universal_tpu_torch.utils.transform import se3_exp
 
 
 def _assert_normal_system(got, want):
@@ -50,3 +56,47 @@ def test_cuda_kernels_match_plain_versions():
     got = cuda_align.fused_evaluate(tiles, ty, tx, w, ref, jac, ab, 4)
     want = cuda_align.fused_evaluate_plain(tiles, ty, tx, w, ref, jac, ab, 4)
     _assert_normal_system([x.cpu() for x in got], [x.cpu() for x in want])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mono", "prior_alpha_beta", "two_cameras",
+                                  "n768"])
+def test_align_level_matches_plain_version(case):
+    """The cluster kernel against its plain version, level by level from
+    the same inputs: one camera, the prior with alpha/beta, two cameras on
+    one body, and N = 768 (beyond the 560 features the cluster stages)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run on the card with `python -m "
+                    "pytest --noconftest tests/test_torch_gpu.py -m gpu`")
+    intr = (460.0, 460.0, 376.0, 240.0)
+    extras = case == "prior_alpha_beta"
+    gain, offset = (1.08, -6.0) if extras else (1.0, 0.0)
+    rigs = [(Camera.pinhole(*intr, 752, 480), None)]
+    if case == "two_cameras":
+        rigs.append((Camera.pinhole(300.0, 300.0, 376.0, 240.0, 752, 480),
+                     syn.pose(0.1, 0.0, 0.0, 0.0, 0.3, 0.0)))
+    grid = (32, 24) if case == "n768" else (24, 15)
+    inputs = [syn.align_problem(cam, syn.pose(0, 0, 0),
+                                syn.pose(0.024, 0.004, 0.004), intr, 2.5, 5,
+                                grid=grid, gain=gain, offset=offset,
+                                T_cam_body=Tcb, device="cuda")
+              for cam, Tcb in rigs]
+    opts = sia.SparseImgAlignOptions(
+        estimate_alpha=extras, estimate_beta=extras,
+        prior_lambda_rot=0.1 * extras, prior_lambda_trans=0.05 * extras)
+    T_prior = se3_exp(torch.tensor([0.02, 0.0, 0.0, 0.0, 0.001, 0.0],
+                                   device="cuda"))
+    pre = [sia.precompute_base(inp, False) for inp in inputs]
+    state = sia.make_state(device="cuda")
+    depth = max(float(inp.depth_ref.max()) for inp in inputs)
+    for level in (4, 3, 2):
+        cams = sia.level_cameras(inputs, pre, state, opts, level)
+        got = cuda_align.align_level(cams, state, opts, level, T_prior)
+        want = cuda_align.align_level_plain(cams, state, opts, level,
+                                            T_prior)
+        assert syn.rotation_gap(got[0].T_icur_iref.q,
+                                want[0].T_icur_iref.q) <= 1e-4, level
+        dt = (got[0].T_icur_iref.t - want[0].T_icur_iref.t).norm()
+        assert float(dt) <= 1e-4 * depth, level
+        assert int(got[2]) == int(want[2]) > 100, level
+        state = want[0]

@@ -9,6 +9,12 @@
   of sparse alignment, at the tolerances of tests/test_pallas_align.py:51-54
   (H rtol 2e-5 / atol 1e-2, g rtol 2e-4 / atol 0.5, chi2 2e-4 relative, n
   exact): the same float32 arithmetic with sums taken in another order.
+- Align level (kernel 4): its plain version, one pyramid level of the LM
+  keep-best loop (``run`` with max_level = min_level), against the JAX
+  ``run`` at that level, in each branch the kernel implements: the prior,
+  alpha/beta, two cameras, the fisheye, omni and atan camera models.
+  Rotation ≤ 1e-4 rad and translation ≤ 1e-4·depth (float32 solves from
+  the same start), n_tracked equal.
 """
 
 import jax.numpy as jnp
@@ -16,17 +22,20 @@ import numpy as np
 import pytest
 import torch
 
+from svo_pro_universal_tpu.cameras import projections as jproj
 from svo_pro_universal_tpu.cameras.projections import Camera as JaxCamera
 from svo_pro_universal_tpu.ops import pallas_align, pallas_tiles
 from svo_pro_universal_tpu.ops import sparse_img_align as jsia
 from svo_pro_universal_tpu.ops import tiles as jtl
 from svo_pro_universal_tpu.ops.pyramid import build_pyramid as jbuild
+from svo_pro_universal_tpu.utils.transform import SE3 as JaxSE3
 from svo_pro_universal_tpu.utils.transform import se3_exp as jse3_exp
 from svo_pro_universal_tpu_torch import convert
 from svo_pro_universal_tpu_torch.ops import _cuda, cuda_align, cuda_tiles
 from svo_pro_universal_tpu_torch.ops import sparse_img_align as tsia
 from svo_pro_universal_tpu_torch.ops import tiles as ttl
 from svo_pro_universal_tpu_torch.ops.pyramid import build_pyramid as tbuild
+from svo_pro_universal_tpu_torch.testing import synthetic as syn
 
 from torch_parity_utils import camera_dict  # noqa: F401  (sets threads)
 
@@ -224,6 +233,114 @@ def test_sparse_img_align_run_matches_jax(rng):
     assert 2 * np.arccos(min(dq, 1.0)) <= 1e-4
     assert np.linalg.norm(tst.T_icur_iref.t.numpy()
                           - np.asarray(jT.t)) <= 1e-4 * 2.2
+
+
+def _camera_inputs(rng, jcam, twist_cam_body=None, seed=0, shift=(1, 2),
+                   gain=1.0, offset=0.0, n=50):
+    """One camera's sparse-alignment inputs for both implementations: a
+    textured pyramid pair (the cur image shifted by ``shift`` px, then
+    ``gain``·I + ``offset``), n features with bearings through ``jcam`` and
+    depths in 1.8..2.2, and T_cam_body = exp(``twist_cam_body``)."""
+    H, W = 120, 160
+    y, x = np.mgrid[0:H, 0:W]
+    p = 1.7 * seed
+    img = (120 + 40 * np.sin(x / 7.0 + p) * np.cos(y / 5.0)
+           + 30 * np.sin((x + y) / 11.0))
+    img_cur = np.roll(img, shift, axis=(0, 1)) * gain + offset
+    imgs = [np.clip(i, 0, 255).astype(np.uint8) for i in (img, img_cur)]
+    px = np.stack([rng.uniform(12, W - 12, n), rng.uniform(12, H - 12, n)],
+                  -1).astype(np.float32)
+    f = np.asarray(jproj.backproject(jcam, jnp.asarray(px)), np.float32)
+    depth = rng.uniform(1.8, 2.2, n).astype(np.float32)
+    valid = rng.uniform(size=n) > 0.1
+    if twist_cam_body is None:
+        q, t = np.array([1.0, 0, 0, 0], np.float32), np.zeros(3, np.float32)
+    else:
+        Tcb = jse3_exp(jnp.asarray(twist_cam_body, jnp.float32))
+        q, t = np.asarray(Tcb.q), np.asarray(Tcb.t)
+    jinp = jsia.CameraInput(
+        jbuild(jnp.asarray(imgs[0]), 3), jbuild(jnp.asarray(imgs[1]), 3),
+        jnp.asarray(px), jnp.asarray(f), jnp.asarray(depth),
+        jnp.asarray(valid), JaxSE3(jnp.asarray(q), jnp.asarray(t)), jcam)
+    tinp = tsia.CameraInput(
+        tbuild(torch.from_numpy(imgs[0]), 3),
+        tbuild(torch.from_numpy(imgs[1]), 3), _t(px), _t(f), _t(depth),
+        _t(valid), convert.se3({"q": q, "t": t}),
+        convert.camera(camera_dict(jcam)))
+    return jinp, tinp
+
+
+def _pinhole():
+    return JaxCamera.pinhole(150.0, 150.0, 80.0, 60.0, 160, 120)
+
+
+def _assert_level_matches_jax(jinps, tinps, twist_prior=None, level=1,
+                              **opts):
+    """One level through both ``run``s from the identity: rotation ≤ 1e-4
+    rad, translation ≤ 1e-4·depth (2.2), n_tracked equal."""
+    o = dict(max_level=level, min_level=level, max_iter=10, **opts)
+    jprior = tprior = None
+    if twist_prior is not None:
+        jprior = jse3_exp(jnp.asarray(twist_prior, jnp.float32))
+        tprior = convert.se3({"q": np.asarray(jprior.q),
+                              "t": np.asarray(jprior.t)})
+    jst, jstats = jsia.run(jinps, jsia.make_state(),
+                           jsia.SparseImgAlignOptions(**o), T_prior=jprior)
+    tst, tstats = tsia.run(tinps, tsia.make_state(),
+                           tsia.SparseImgAlignOptions(**o), T_prior=tprior)
+    assert int(tstats.n_tracked) == int(jstats.n_tracked) > 20
+    assert int(tstats.n_iter_total) >= 2
+    assert syn.rotation_gap(tst.T_icur_iref.q,
+                            np.asarray(jst.T_icur_iref.q)) <= 1e-4
+    assert np.linalg.norm(tst.T_icur_iref.t.numpy()
+                          - np.asarray(jst.T_icur_iref.t)) <= 1e-4 * 2.2
+    return tst, jst
+
+
+def test_align_level_plain_matches_jax_with_prior(rng):
+    """(a) the prior on, T_prior away from the start."""
+    jinp, tinp = _camera_inputs(rng, _pinhole())
+    _assert_level_matches_jax(
+        [jinp], [tinp], twist_prior=[0.004, -0.002, 0.001, 0.001, 0.0005,
+                                     -0.001],
+        prior_lambda_rot=0.1, prior_lambda_trans=0.05)
+
+
+def test_align_level_plain_matches_jax_alpha_beta(rng):
+    """(b) alpha and beta estimated, on a cur image with gain and offset."""
+    jinp, tinp = _camera_inputs(rng, _pinhole(), gain=1.08, offset=-6.0)
+    tst, jst = _assert_level_matches_jax([jinp], [tinp], estimate_alpha=True,
+                                         estimate_beta=True)
+    assert abs(float(tst.alpha) - float(jst.alpha)) <= 1e-3
+    assert abs(float(tst.beta) - float(jst.beta)) <= 0.1
+
+
+def test_align_level_plain_matches_jax_two_cameras(rng):
+    """(c) two cameras with their own T_cam_body, images and features."""
+    j0, t0 = _camera_inputs(rng, _pinhole())
+    j1, t1 = _camera_inputs(rng, _pinhole(), seed=1, shift=(2, 1),
+                            twist_cam_body=[0.1, 0.0, 0.0, 0.0, 0.05, 0.0])
+    _assert_level_matches_jax([j0, j1], [t0, t1])
+
+
+@pytest.mark.parametrize("model", ["fisheye_equidistant", "omni_radtan",
+                                   "pinhole_atan"])
+def test_align_level_plain_matches_jax_camera_models(rng, model):
+    """(d) the other projection and distortion models of the kernel."""
+    P, D = jproj.ProjectionModel, jproj.DistortionModel
+    jcam = {
+        "fisheye_equidistant": JaxCamera(
+            P.FISHEYE_EQUIDISTANT, D.EQUIDISTANT, [110.0, 110.0, 80.0, 60.0],
+            [0.02, -0.01, 0.003, -0.001], 160, 120),
+        "omni_radtan": JaxCamera(
+            P.OMNI, D.RADTAN, [260.0, 260.0, 80.0, 60.0],
+            [-0.05, 0.01, 0.001, -0.001, 0.8], 160, 120),
+        "pinhole_atan": JaxCamera.pinhole(
+            150.0, 150.0, 80.0, 60.0, 160, 120, distortion=D.ATAN,
+            dist_params=[0.9]),
+    }[model]
+    jinp, tinp = _camera_inputs(rng, jcam)
+    _assert_level_matches_jax([jinp], [tinp])
 
 
 def test_wrappers_reject_other_devices():

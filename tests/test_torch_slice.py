@@ -21,7 +21,8 @@ from svo_pro_universal_tpu.frontend.pipeline import (
 from svo_pro_universal_tpu.testing.synthetic import CAM
 from svo_pro_universal_tpu_torch import convert
 from svo_pro_universal_tpu_torch.cameras.projections import Camera
-from svo_pro_universal_tpu_torch.frontend.frame_handler import Stage
+from svo_pro_universal_tpu_torch.frontend.frame_handler import (
+    FrameHandlerMono, Stage)
 from svo_pro_universal_tpu_torch.frontend.pipeline import DevicePipelineMono
 
 from torch_parity_utils import (camera_dict, port_config, rotation_angle_deg,
@@ -124,6 +125,17 @@ def test_pipeline_defaults_to_the_card(monkeypatch):
     cam = Camera.pinhole(150.0, 150.0, 80.0, 60.0, 160, 120)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DevicePipelineMono(port_config(slice_config()), cam)
+
+
+def test_frame_handler_defaults_to_the_card(monkeypatch):
+    """FrameHandlerMono, like the pipeline, runs on the card unless it is
+    given a device: without a card the default raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cam = Camera.pinhole(150.0, 150.0, 80.0, 60.0, 160, 120)
+    cfg = port_config(slice_config())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FrameHandlerMono(cfg, cam)
+    assert FrameHandlerMono(cfg, cam, device="cpu").device.type == "cpu"
 
 
 def test_unported_options_raise():
