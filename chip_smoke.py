@@ -12,7 +12,17 @@ line each:
 3. kernels  each CUDA kernel against its plain PyTorch version on the card
             at the shapes the tracking step gives it: CUDA-event times
             (median), the byte/operation bound, and one PyTorch library call
-            for the gathers. align_level runs on two rendered views of the
+            for the gathers. The gathers: each extract_tiles /
+            extract_tiles_ring call (tile origins computed in the kernel)
+            and each origins-given call at the seven path shapes, equal to
+            the plain versions, timed by gather_bench.py in a subprocess
+            (the ring also with a cold L2), exactly one CUDA kernel per call
+            in its torch.profiler traces, gated, and the device ms per
+            launch; then NaN/inf/huge/.5/border centres,
+            levels and slots out of range, int32 indices and N = 0 on both
+            copy routes (TMA at 752 wide, plain loads at 754 and for
+            10×10 tiles). align_level
+            runs on two rendered views of the
             plane (levels 4..2, each level from the same inputs for both)
             through four camera models with the prior and alpha/beta off
             and on (N = 360), two cameras on one body, and N = 768: pose
@@ -39,6 +49,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -50,6 +61,8 @@ from svo_pro_universal_tpu_torch.frontend.frame_handler import Stage
 from svo_pro_universal_tpu_torch.frontend.pipeline import DevicePipelineMono
 from svo_pro_universal_tpu_torch.ops import _cuda, cuda_align, cuda_tiles
 from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
+from svo_pro_universal_tpu_torch.ops import tiles
+from svo_pro_universal_tpu_torch.testing import gather_shapes as gs
 from svo_pro_universal_tpu_torch.testing import synthetic as syn
 from svo_pro_universal_tpu_torch.utils.transform import se3_exp
 
@@ -118,91 +131,145 @@ def gt_pose(t: int) -> np.ndarray:
                     0.001 * np.sin(0.1 * t))
 
 
-def cuda_ms(fn, reps: int = 20, samples: int = 15) -> float:
-    """Median over ``samples`` of the mean CUDA-event time of ``reps``
-    back-to-back calls, after a warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return float(np.median(times))
-
-
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _origins(rng, n, R, T, L, dev):
-    lvl = rng.integers(0, L, n)
-    hs = np.array([H >> l for l in range(L)])
-    ws = np.array([W >> l for l in range(L)])
-    y0 = np.clip(rng.integers(0, hs[lvl]), 0, H - R)
-    x0 = np.clip(rng.integers(0, ws[lvl]), 0, W - T)
-    return [torch.as_tensor(a, device=dev) for a in (lvl, y0, x0)]
+def gather_bytes(n: int, R: int, T: int, ring: bool, centres: bool,
+                 idx_bytes: int = 8) -> int:
+    """Bytes a tile gather must move: each tile read once and written once,
+    each index at its width (int64 on the path); in centres mode the float32
+    centres in and the four int64 origin vectors out, else the given
+    (level, y0, x0) in."""
+    nbytes = 2 * n * R * T * 4
+    if centres:
+        return nbytes + n * (2 * 4 + idx_bytes * (1 + ring) + 4 * 8)
+    return nbytes + n * idx_bytes * (3 + ring)
+
+
+def bench_gathers() -> list[dict]:
+    """gather_bench.py's rows for this tree, from a subprocess, so that the
+    profiler sessions it needs stay out of this process (one may slow the
+    process's later launches, and the slice is timed later)."""
+    root = Path(__file__).resolve().parent
+    run = subprocess.run([sys.executable, str(root / "gather_bench.py")],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    if run.returncode != 0:
+        fail(f"gather_bench.py failed:\n{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])["shapes"]
+
+
+def gather_cases(bw: float, cases: list) -> dict:
+    """Both gathers at the seven shapes of the path, on gather_bench.py's
+    inputs (gather_shapes.path_inputs, same seed): one extract_tiles /
+    extract_tiles_ring call (centres mode) against extract_tiles_plain and
+    the origins-given gather against gather_tiles_plain, torch.equal; the
+    plain versions and the
+    advanced-indexing library call timed here, the calls themselves by
+    gather_bench.py, whose torch.profiler traces gate exactly one CUDA
+    kernel per call. Then every edge case of syn.tile_case on both copy
+    routes (752 wide: TMA for tiles of 12, 24 and 40; 754 wide, and 10×10
+    tiles: plain loads). Returns the representative case of each kernel."""
+    bench = bench_gathers()
+    dev = torch.device("cuda")
+    pyr, ring, shapes = gs.path_inputs(0, dev)
+    if len(bench) != len(shapes):
+        fail(f"gather_bench.py gave {len(bench)} rows for {len(shapes)} "
+             "shapes")
+    main = {}
+    for (name, n, R, where, lvl, kf, cyx), row in zip(shapes, bench):
+        label = f"{name} N={n} {R}x{R}"
+        if (row["name"], row["n"], row["tile"]) != (name, n, [R, R]):
+            fail(f"{label}: gather_bench row {row}")
+        if row["kernels_one_call"] != 1 or row["kernels_per_call"] != 1:
+            fail(f"{label}: {row['kernels_one_call']} CUDA kernels in a "
+                 f"one-call trace, {row['kernels_per_call']} a call over "
+                 "20 calls; expected exactly 1")
+        is_ring = name == "gather_tiles_ring"
+        call, given = gs.shape_calls(tiles, cuda_tiles, pyr, ring, name, R,
+                                     lvl, kf, cyx)
+        src = ring if is_ring else pyr
+        if is_ring:
+            plain = lambda: cuda_tiles.extract_tiles_ring_plain(  # noqa: E731
+                ring, kf, lvl, cyx, R, R)
+        else:
+            plain = lambda: cuda_tiles.extract_tiles_plain(  # noqa: E731
+                pyr, lvl, cyx, R, R)
+        got, want = call(), plain()
+        y0, x0 = want[1], want[2]
+        if is_ring:
+            given_plain = lambda: cuda_tiles.gather_tiles_ring_plain(  # noqa
+                ring, kf, lvl, y0, x0, R, R)
+            idx = (kf[:, None, None], lvl[:, None, None])
+        else:
+            given_plain = lambda: cuda_tiles.gather_tiles_plain(  # noqa: E731
+                pyr, lvl, y0, x0, R, R)
+            idx = (lvl[:, None, None],)
+        rows = y0[:, None, None] + torch.arange(R, device=dev)[None, :, None]
+        cols = x0[:, None, None] + torch.arange(R, device=dev)[None, None, :]
+        library = lambda: src[idx + (rows, cols)]  # noqa: E731
+        g = given()
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, b) for a, b in zip(got, want))
+                and torch.equal(g, want[0])):
+            fail(f"{label}: kernel differs from plain version")
+        case = dict(
+            name=name, n=n, tile=[R, R], where=where,
+            copy_route="tma" if cuda_tiles.tma_route(src, R, R) else "lsu",
+            max_abs_err=float((got[0] - want[0]).abs().max()),
+            ms=row["call_ms"], plain_ms=gs.cuda_ms(plain),
+            origins_given_ms=row["given_ms"],
+            origins_given_plain_ms=gs.cuda_ms(given_plain),
+            library_ms=gs.cuda_ms(library),
+            device_ms=row["device_ms"],
+            origins_given_device_ms=row["given_device_ms"],
+            **{k: row[k] for k in ("kernels_one_call", "kernels_per_call",
+                                   "call_device_ms", "gather_kernels")},
+            bound_ms=gather_bytes(n, R, R, is_ring, True) / bw * 1e3,
+            origins_given_bound_ms=gather_bytes(n, R, R, is_ring, False)
+            / bw * 1e3,
+            old_bound_ms=(2 * n * R * R * 4 + n * (3 + is_ring) * 4)
+            / bw * 1e3,
+            bound_by="bytes")
+        if is_ring:
+            case |= dict(cold_ms=row["cold_call_ms"],
+                         cold_origins_given_ms=row["cold_given_ms"],
+                         cold_library_ms=gs.cold_ms(library))
+        cases.append(case)
+        main.setdefault(name, {})[(n, R)] = case
+    edge = {}
+    rng = np.random.default_rng(0)
+    for width in (W, W + 2):
+        e_pyr = torch.rand((gs.L, H, width), device=dev) * 255
+        e_ring = torch.rand((gs.K, gs.L, H, width), device=dev) * 255
+        routes = {R: "tma" if cuda_tiles.tma_route(e_pyr, R, R) else "lsu"
+                  for R in syn.TILE_SIZES}
+        bad = syn.tile_gather_mismatches(e_pyr, e_ring, rng)
+        torch.cuda.synchronize()
+        if bad or any((v == "tma") != (width == W and R % 4 == 0)
+                      for R, v in routes.items()):
+            fail(f"gather edge cases at width {width}: routes {routes}, "
+                 f"mismatches {bad[:10]}")
+        edge[width] = routes
+        del e_ring
+    cases.append(dict(name="gather_edge_cases", routes=edge,
+                      cases=list(syn.TILE_CASES) + ["nonfinite"],
+                      all_equal=True))
+    return {"gather_tiles": main["gather_tiles"][(360, 24)],
+            "gather_tiles_ring": main["gather_tiles_ring"][(768, 24)]}
 
 
 def kernel_cases(bw: float) -> tuple[list, dict]:
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    L, K = 5, 8
-    pyr = torch.as_tensor(rng.uniform(0, 255, (L, H, W)).astype(np.float32),
-                          device=dev)
-    ring = torch.as_tensor(rng.uniform(0, 255, (K, L, H, W))
-                           .astype(np.float32), device=dev)
-    cases = []
-
-    def gather_case(name, n, R, T, ring_mode):
-        lvl, y0, x0 = _origins(rng, n, R, T, L, dev)
-        if ring_mode:
-            kf = torch.as_tensor(rng.integers(0, K, n), device=dev)
-            run = lambda: cuda_tiles.gather_tiles_ring(  # noqa: E731
-                ring, kf, lvl, y0, x0, R, T)
-            plain = lambda: cuda_tiles.gather_tiles_ring_plain(  # noqa: E731
-                ring, kf, lvl, y0, x0, R, T)
-            idx = (kf[:, None, None], lvl[:, None, None])
-            src, n_idx = ring, 4
-        else:
-            run = lambda: cuda_tiles.gather_tiles(  # noqa: E731
-                pyr, lvl, y0, x0, R, T)
-            plain = lambda: cuda_tiles.gather_tiles_plain(  # noqa: E731
-                pyr, lvl, y0, x0, R, T)
-            idx = (lvl[:, None, None],)
-            src, n_idx = pyr, 3
-        rows = y0[:, None, None] + torch.arange(R, device=dev)[None, :, None]
-        cols = x0[:, None, None] + torch.arange(T, device=dev)[None, None, :]
-        library = lambda: src[idx + (rows, cols)]  # noqa: E731
-        out, ref = run(), plain()
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            fail(f"{name} N={n} {R}x{T}: kernel differs from plain version")
-        nbytes = 2 * n * R * T * 4 + n * n_idx * 4
-        cases.append(dict(
-            name=name, n=n, tile=[R, T], max_abs_err=float(
-                (out - ref).abs().max()), ms=cuda_ms(run),
-            plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
-            bound_ms=nbytes / bw * 1e3, bound_by="bytes"))
-
-    gather_case("gather_tiles", 360, 12, 12, False)   # sparse align ref
-    gather_case("gather_tiles", 360, 24, 24, False)   # sparse align cur
-    gather_case("gather_tiles", 384, 24, 24, False)   # reprojection align
-    gather_case("gather_tiles", 768, 24, 24, False)   # depth-filter align
-    gather_case("gather_tiles", 768, 40, 40, False)   # epipolar scan
-    gather_case("gather_tiles_ring", 384, 24, 24, True)   # reprojection
-    gather_case("gather_tiles_ring", 768, 24, 24, True)   # depth filter
+    cases: list = []
+    main = gather_cases(bw, cases)
+    rng = np.random.default_rng(1)
 
     # kernel 3 at the sparse-alignment shapes, plus exact-integer origins
     n, R, T, P = 360, 24, 24, 4
-    tiles = torch.as_tensor(rng.uniform(0, 255, (n, R, T))
-                            .astype(np.float32), device=dev)
+    tile_data = torch.as_tensor(rng.uniform(0, 255, (n, R, T))
+                                .astype(np.float32), device=dev)
     ref = torch.as_tensor(rng.uniform(0, 255, (n, P * P))
                           .astype(np.float32), device=dev)
     jac = torch.as_tensor(rng.normal(0, 1, (n, P * P, 8))
@@ -217,7 +284,7 @@ def kernel_cases(bw: float) -> tuple[list, dict]:
             ("integer", np.full(n, float(R - P)), np.full(n, float(T - P)))):
         ty = torch.as_tensor(ty.astype(np.float32), device=dev)
         tx = torch.as_tensor(tx.astype(np.float32), device=dev)
-        args = (tiles, ty, tx, w, ref, jac, ab, P)
+        args = (tile_data, ty, tx, w, ref, jac, ab, P)
         run = lambda: cuda_align.fused_evaluate(*args)  # noqa: E731
         plain = lambda: cuda_align.fused_evaluate_plain(*args)  # noqa: E731
         Hk, gk, ck, nk = run()
@@ -237,14 +304,13 @@ def kernel_cases(bw: float) -> tuple[list, dict]:
         bound = max(nbytes / bw, flops / _FP32_FLOPS) * 1e3
         cases.append(dict(
             name="fused_evaluate", n=n, tile=[R, T], origins=label,
-            max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain),
+            max_abs_err=err, ms=gs.cuda_ms(run), plain_ms=gs.cuda_ms(plain),
             library_ms=None, bound_ms=bound,
             bound_by="bytes" if nbytes / bw >= flops / _FP32_FLOPS
             else "operations"))
     # the representative shape of each kernel on the main path
-    main = {"gather_tiles": cases[1], "gather_tiles_ring": cases[6],
-            "fused_evaluate": cases[7],
-            "align_level": align_cases(bw, cases)}
+    main["fused_evaluate"] = cases[-2]
+    main["align_level"] = align_cases(bw, cases)
     return cases, main
 
 
@@ -333,8 +399,8 @@ def align_cases(bw: float, cases: list, dev=torch.device("cuda")) -> dict:
                           + 16 * 4 * len(cams) + 9 * 4 + 12 * 4)
                 flops = (1 + it) * n * area * (6 + 3 + 2 * 64 + 2 * 8 + 3)
                 line |= dict(
-                    ms=cuda_ms(lambda: cuda_align.align_level(*args)),
-                    plain_ms=cuda_ms(
+                    ms=gs.cuda_ms(lambda: cuda_align.align_level(*args)),
+                    plain_ms=gs.cuda_ms(
                         lambda: cuda_align.align_level_plain(*args),
                         reps=1, samples=3),
                     bytes=nbytes, flops=flops,
@@ -429,11 +495,12 @@ def profile_frames(frames: list) -> dict:
                          "cuLaunchKernel", "cuLaunchKernelEx"})
     n = len(frames)
     # the port's own __global__ functions: launches per frame and device
-    # ms per launch (the gathers share gather_tiles_kernel)
+    # ms per launch
     port = {}
     for e in kernels:
-        for fn in ("gather_tiles_kernel", "fused_evaluate_partials",
-                   "fused_evaluate_reduce", "align_level_kernel"):
+        for fn in ("gather_tiles_kernel", "gather_tiles_ring_kernel",
+                   "fused_evaluate_partials", "fused_evaluate_reduce",
+                   "align_level_kernel"):
             if fn in e.key and e.count:
                 c, t = port.get(fn, (0, 0.0))
                 port[fn] = (c + e.count, t + e.self_device_time_total)
@@ -562,6 +629,8 @@ def main() -> None:
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"])
+        entry |= {key: c[key] for key in ("device_ms", "origins_given_ms",
+                                          "copy_route") if key in c}
         if k.name == "fused_evaluate":
             entry["on_path"] = ("held in the kernels phase; on the path its "
                                 "per-feature evaluate runs inside align_level")

@@ -22,14 +22,6 @@ import torch.nn.functional as F
 from svo_pro_universal_tpu_torch.ops import cuda_tiles
 
 
-def level_sizes(h: int, w: int, n_levels: int, device=None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(heights [L], widths [L]) of the pyramid levels, built on the device
-    (a host list copied to the card would synchronize the stream)."""
-    lv = torch.arange(n_levels, device=device)
-    return torch.full_like(lv, h) >> lv, torch.full_like(lv, w) >> lv
-
-
 class TileBatch(NamedTuple):
     """[N] axis-aligned tiles cut from per-feature pyramid levels."""
     tiles: torch.Tensor  # [N, R, T] float32
@@ -43,28 +35,12 @@ class TileBatch(NamedTuple):
         return self.tiles.shape[-2], self.tiles.shape[-1]
 
 
-def _tile_origin(cy, cx, level, R, T, h, w, n_levels):
-    hs, ws = level_sizes(h, w, n_levels, cy.device)
-    lvl = torch.clamp(level.long(), 0, n_levels - 1)
-    lh, lw = hs[lvl], ws[lvl]
-    y0 = torch.round(cy).long() - R // 2
-    x0 = torch.round(cx).long() - T // 2
-    # keep the slice inside the PADDED array; level extents are handled by
-    # the sampling masks (zeros pad outside the level)
-    y0 = torch.clamp(y0, 0, h - R)
-    x0 = torch.clamp(x0, 0, w - T)
-    return y0, x0, lh, lw, lvl
-
-
 def extract_tiles(pyr3: torch.Tensor, level: torch.Tensor,
                   center_yx: torch.Tensor, R: int, T: int) -> TileBatch:
     """Cut [N, R, T] tiles around ``center_yx`` ([N, 2] = (y, x) in LEVEL
-    coords) at per-feature ``level`` from a padded [L, H, W] pyramid."""
-    L, H, W = pyr3.shape
-    y0, x0, lh, lw, lvl = _tile_origin(
-        center_yx[:, 0], center_yx[:, 1], level, R, T, H, W, L)
-    tiles = cuda_tiles.gather_tiles(pyr3, lvl, y0, x0, R, T)
-    return TileBatch(tiles, y0, x0, lh, lw)
+    coords) at per-feature ``level`` from a padded [L, H, W] pyramid (on the
+    card one kernel launch, origins included)."""
+    return TileBatch(*cuda_tiles.extract_tiles(pyr3, level, center_yx, R, T))
 
 
 def extract_tiles_ring(ring4: torch.Tensor, kf: torch.Tensor,
@@ -72,12 +48,8 @@ def extract_tiles_ring(ring4: torch.Tensor, kf: torch.Tensor,
                        R: int, T: int) -> TileBatch:
     """Same as :func:`extract_tiles` from a stacked keyframe-ring pyramid
     [K, L, H, W] with a per-feature keyframe index (clipped to [0, K-1])."""
-    K, L, H, W = ring4.shape
-    y0, x0, lh, lw, lvl = _tile_origin(
-        center_yx[:, 0], center_yx[:, 1], level, R, T, H, W, L)
-    kfc = torch.clamp(kf.long(), 0, K - 1)
-    tiles = cuda_tiles.gather_tiles_ring(ring4, kfc, lvl, y0, x0, R, T)
-    return TileBatch(tiles, y0, x0, lh, lw)
+    return TileBatch(*cuda_tiles.extract_tiles_ring(ring4, kf, level,
+                                                    center_yx, R, T))
 
 
 def tile_bilinear(tb: TileBatch, ys: torch.Tensor, xs: torch.Tensor

@@ -7,7 +7,9 @@ render_plane_view), written in numpy so it needs neither JAX nor a card, plus
 is a function of the plane point, so a camera can travel any distance
 without running off the texture, seen through a pinhole or through any
 camera model of the port; ``align_problem``, a sparse-alignment input
-built from two such views; and ``rotation_gap`` to compare poses.
+built from two such views; ``rotation_gap`` to compare poses; and
+``tile_case`` and ``tile_gather_mismatches``, which hold the tile
+gathers (origin arithmetic included) to their plain versions.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from svo_pro_universal_tpu_torch.cameras import projections as proj
+from svo_pro_universal_tpu_torch.ops import cuda_tiles
 from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
 from svo_pro_universal_tpu_torch.ops.pyramid import (
     build_pyramid, image_to_float)
@@ -182,3 +185,105 @@ def rotation_gap(qa, qb) -> float:
     w = a[0] * b[0] + a[1:] @ b[1:]                 # conj(a) * b
     v = a[0] * b[1:] - b[0] * a[1:] - np.cross(a[1:], b[1:])
     return float(2.0 * np.arctan2(np.linalg.norm(v), abs(w)))
+
+
+# cases of tile_case; "nonfinite" is for the card only (the CPU's
+# float -> int64 cast differs from the card's and from JAX's there)
+TILE_CASES = ("spread", "half", "borders", "levels", "int32", "empty")
+# tile sizes of tile_gather_mismatches: the path's 12, 24 and 40, and 10,
+# whose rows are no multiple of 16 bytes (the plain-load route at any width)
+TILE_SIZES = (10, 12, 24, 40)
+
+
+def tile_case(rng: np.random.Generator, case: str, n: int, h: int, w: int,
+              n_levels: int, n_kf: int, tile: int
+              ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(level [n], ring slot [n], centres [n, 2] = (y, x) float32) of one
+    case for ``extract_tiles`` / ``extract_tiles_ring`` on an [n_kf,
+    n_levels, h, w] source with ``tile``² tiles:
+
+    - spread: centres over and past the image, levels and slots in range;
+    - half: exact .5 centres (round half to even);
+    - borders: centres on and beyond every border of the image and of each
+      level, and where the clip to the padded image starts;
+    - levels: levels and ring slots -1, L (K), and further out;
+    - int32: as spread, with int32 levels and slots (else int64);
+    - empty: no feature;
+    - nonfinite: NaN, ±inf and ±1e30 centres among spread ones, as an
+      invalid feature (a point behind the camera) gives."""
+    lvl = rng.integers(0, n_levels, n)
+    kf = rng.integers(0, n_kf, n)
+    cy = rng.uniform(-10, h + 10, n)
+    cx = rng.uniform(-10, w + 10, n)
+    half = tile // 2
+    if case == "half":
+        cy = rng.integers(-3, h + 3, n) + 0.5
+        cx = rng.integers(-3, w + 3, n) + 0.5
+    elif case == "borders":
+        ys = [0, -1, h - 1, h, h + 50, -50, half, h - half, half - 0.5,
+              h - half + 0.5] + [(h >> v) - 1 for v in range(n_levels)]
+        xs = [0, -1, w - 1, w, w + 50, -50, half, w - half, half + 0.5,
+              w - half - 0.5] + [w >> v for v in range(n_levels)]
+        cy = np.resize(np.asarray(ys, np.float64), n)
+        cx = np.resize(np.asarray(xs[::-1], np.float64), n)
+    elif case == "levels":
+        lvl = np.resize(np.array([-1, n_levels, -7, n_levels + 3, 0,
+                                  n_levels - 1]), n)
+        kf = np.resize(np.array([-1, n_kf, 0, n_kf - 1, -4, n_kf + 2, 1]), n)
+    elif case == "nonfinite":
+        bad = [np.nan, np.inf, -np.inf, 1e30, -1e30, 3e9, -3e9]
+        cy[:len(bad)] = bad
+        cx[:len(bad)] = bad[::-1]
+        cy[len(bad):2 * len(bad)] = bad[3:] + bad[:3]
+    elif case == "empty":
+        lvl, kf, cy, cx = lvl[:0], kf[:0], cy[:0], cx[:0]
+    elif case not in ("spread", "int32"):
+        raise ValueError(f"unknown tile case {case!r}")
+    idx = np.int32 if case == "int32" else np.int64
+    return (lvl.astype(idx), kf.astype(idx),
+            np.stack([cy, cx], -1).astype(np.float32))
+
+
+def tile_gather_mismatches(pyr: torch.Tensor, ring: torch.Tensor,
+                           rng: np.random.Generator,
+                           tiles: tuple = TILE_SIZES, n: int = 300
+                           ) -> list[tuple]:
+    """Hold both gathers of ``ops.cuda_tiles``, in centres mode and with
+    the origins given, against their plain versions on the device of
+    ``pyr`` [L, H, W] and ``ring`` [K, L, H, W]: every case of
+    :func:`tile_case`, "nonfinite" included, with the centres read by stride
+    (columns of a wider array, or of its transpose), ``torch.equal`` on the
+    tiles and all four origin vectors, and one launch of each kernel a
+    call. Returns the (tile, case, output) that differ; [] when all agree."""
+    K, L, h, w = ring.shape
+    dev = pyr.device
+    kernels = (cuda_tiles.GATHER_TILES, cuda_tiles.GATHER_TILES_RING)
+    names = [f"{m} {o}" for m in ("pyramid", "ring")
+             for o in ("tiles", "y0", "x0", "lh", "lw")]
+    bad = []
+    for R in tiles:
+        for i, case in enumerate(TILE_CASES + ("nonfinite",)):
+            lvl, kf, cyx = tile_case(rng, case, n, h, w, L, K, R)
+            lvl, kf = (torch.from_numpy(a).to(dev) for a in (lvl, kf))
+            wide = np.concatenate([cyx, cyx[:, :1]], 1)
+            cyx = (torch.from_numpy(wide).to(dev)[:, :2] if i % 2 else
+                   torch.from_numpy(wide.T.copy()).to(dev).T[:, :2])
+            before = [k.launches for k in kernels]
+            got = cuda_tiles.extract_tiles(pyr, lvl, cyx, R, R)
+            got += cuda_tiles.extract_tiles_ring(ring, kf, lvl, cyx, R, R)
+            step = int(lvl.shape[0] > 0)
+            if [k.launches for k in kernels] != [b + step for b in before]:
+                bad.append((R, case, "launches"))
+            want = cuda_tiles.extract_tiles_plain(pyr, lvl, cyx, R, R)
+            want += cuda_tiles.extract_tiles_ring_plain(ring, kf, lvl, cyx,
+                                                        R, R)
+            # origins given: the TPU kernels' own signature
+            lc = lvl.clamp(0, L - 1)
+            got += (cuda_tiles.gather_tiles(pyr, lc, want[1], want[2], R, R),
+                    cuda_tiles.gather_tiles_ring(ring, kf.clamp(0, K - 1), lc,
+                                                 want[6], want[7], R, R))
+            want += (want[0], want[5])
+            bad += [(R, case, name) for name, a, b in zip(
+                names + ["pyramid given", "ring given"], got, want)
+                if not torch.equal(a, b)]
+    return bad

@@ -5,7 +5,9 @@ machine (whose Python has no JAX, hence no conftest):
 Tolerances: the gathers are copies (exact); the fused evaluate those of
 tests/test_torch_kernels.py; the align level (each of levels 4..2 from the
 same inputs) rotation ≤ 1e-4 rad, translation ≤ 1e-4·depth, n_tracked
-equal."""
+equal. The gathers are held on both copy routes of csrc/tiles.cu (TMA at
+752 wide, plain loads at 754 and for 10×10 tiles) and in both modes (centres, origins
+given), non-finite centres included."""
 
 import numpy as np
 import pytest
@@ -56,6 +58,26 @@ def test_cuda_kernels_match_plain_versions():
     got = cuda_align.fused_evaluate(tiles, ty, tx, w, ref, jac, ab, 4)
     want = cuda_align.fused_evaluate_plain(tiles, ty, tx, w, ref, jac, ab, 4)
     _assert_normal_system([x.cpu() for x in got], [x.cpu() for x in want])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [752, 754])
+def test_tile_gathers_match_plain_versions(width):
+    """Both gathers in both modes against their plain versions on the card
+    (torch.equal on the tiles and all four origin vectors): every case of
+    ``syn.tile_case``, NaN, ±inf and 1e30 centres among them, centres read
+    by stride, tiles of 10, 12, 24 and 40 (10 takes the plain-load route
+    at any width); one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run on the card with `python -m "
+                    "pytest --noconftest tests/test_torch_gpu.py -m gpu`")
+    rng = np.random.default_rng(1)
+    pyr = torch.rand((5, 480, width), device="cuda") * 255
+    ring = torch.rand((8, 5, 480, width), device="cuda") * 255
+    for R in syn.TILE_SIZES:
+        assert cuda_tiles.tma_route(pyr, R, R) == (width == 752
+                                                   and R % 4 == 0)
+    assert syn.tile_gather_mismatches(pyr, ring, rng) == []
 
 
 @pytest.mark.gpu

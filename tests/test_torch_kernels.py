@@ -52,40 +52,67 @@ def _pyramid(rng, H=120, W=160, L=4):
     return jp, tp
 
 
-@pytest.mark.parametrize("R,T", [(12, 12), (24, 24), (40, 40)])
-def test_extract_tiles_matches_jax_cpu_path(rng, R, T):
+@pytest.mark.parametrize("R", syn.TILE_SIZES)
+@pytest.mark.parametrize("case", syn.TILE_CASES)
+def test_extract_tiles_matches_jax_cpu_path(rng, case, R):
+    """extract_tiles_plain (and the CPU dispatch of extract_tiles) against
+    the JAX extract_tiles on the CPU (its dynamic_slice path): tiles and all
+    four origin vectors bit for bit."""
     jp, tp = _pyramid(rng)
     L, H, W = jp.shape
-    n = 37
-    lvl = rng.integers(0, L, n)
-    # centers spread over (and past) each level's extent, to hit the clips
-    cy = rng.uniform(-10, H + 10, n).astype(np.float32)
-    cx = rng.uniform(-10, W + 10, n).astype(np.float32)
-    cyx = np.stack([cy, cx], -1)
+    lvl, _, cyx = syn.tile_case(rng, case, 37, H, W, L, 1, R)
     jt = jtl.extract_tiles(jp, jnp.asarray(lvl, jnp.int32), jnp.asarray(cyx),
-                           R, T)
-    tt = ttl.extract_tiles(tp, _t(lvl), _t(cyx), R, T)
-    for a, b in zip(tt, jt):
-        assert torch.equal(a, _t(b))
+                           R, R)
+    args = (tp, torch.from_numpy(lvl), torch.from_numpy(cyx), R, R)
+    plain = cuda_tiles.extract_tiles_plain(*args)
+    tt = ttl.extract_tiles(*args)
+    assert plain[0].shape == (lvl.shape[0], R, R)
+    for a, b, c in zip(plain, tt, jt):
+        assert torch.equal(a, _t(c))
+        assert torch.equal(b, a)
 
 
-@pytest.mark.parametrize("R,T", [(24, 24), (40, 40)])
-def test_extract_tiles_ring_matches_jax_cpu_path(rng, R, T):
+@pytest.mark.parametrize("R", syn.TILE_SIZES)
+@pytest.mark.parametrize("case", syn.TILE_CASES)
+def test_extract_tiles_ring_matches_jax_cpu_path(rng, case, R):
+    """extract_tiles_ring_plain against the JAX extract_tiles_ring on the
+    CPU, ring slots -1 and K among them (clipped)."""
     pyrs = [_pyramid(rng) for _ in range(3)]
     jring = jnp.stack([p[0] for p in pyrs])
     tring = torch.stack([p[1] for p in pyrs])
     K, L, H, W = jring.shape
-    n = 29
-    kf = rng.integers(-1, K + 1, n)           # out-of-range slots clip
-    lvl = rng.integers(0, L, n)
-    cyx = np.stack([rng.uniform(0, H, n), rng.uniform(0, W, n)],
-                   -1).astype(np.float32)
+    lvl, kf, cyx = syn.tile_case(rng, case, 29, H, W, L, K, R)
     jt = jtl.extract_tiles_ring(jring, jnp.asarray(kf, jnp.int32),
                                 jnp.asarray(lvl, jnp.int32),
-                                jnp.asarray(cyx), R, T)
-    tt = ttl.extract_tiles_ring(tring, _t(kf), _t(lvl), _t(cyx), R, T)
-    for a, b in zip(tt, jt):
-        assert torch.equal(a, _t(b))
+                                jnp.asarray(cyx), R, R)
+    args = (tring, torch.from_numpy(kf), torch.from_numpy(lvl),
+            torch.from_numpy(cyx), R, R)
+    plain = cuda_tiles.extract_tiles_ring_plain(*args)
+    tt = ttl.extract_tiles_ring(*args)
+    assert plain[0].shape == (lvl.shape[0], R, R)
+    for a, b, c in zip(plain, tt, jt):
+        assert torch.equal(a, _t(c))
+        assert torch.equal(b, a)
+
+
+def test_nonfinite_centres_are_masked_downstream(rng):
+    """A feature whose centre is NaN, ±inf or huge (a point behind the
+    camera) gets some clipped tile origin, which differs between the CPU's
+    and the card's float -> int cast; tile_bilinear must mask every sample
+    around such a centre, so the difference never reaches a result."""
+    _, tp = _pyramid(rng)
+    L, H, W = tp.shape
+    lvl, _, cyx = syn.tile_case(rng, "nonfinite", 20, H, W, L, 1, 24)
+    bad = ~np.isfinite(cyx).all(-1) | (np.abs(cyx) > 1e6).any(-1)
+    tb = ttl.extract_tiles(tp, torch.from_numpy(lvl), torch.from_numpy(cyx),
+                           24, 24)
+    off = torch.arange(-2.0, 3.0)
+    ys = torch.from_numpy(cyx[:, :1]) + off
+    xs = torch.from_numpy(cyx[:, 1:]) + off
+    vals, inb = ttl.tile_bilinear(tb, ys, xs)
+    assert bad.sum() >= 10
+    assert not inb[torch.from_numpy(bad)].any()
+    assert torch.all(vals[torch.from_numpy(bad)] == 0)
 
 
 def _aligned(rng, n, H, W, L, RA, TA):
