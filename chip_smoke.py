@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — ``DevicePipelineMono`` (mono VO tracking,
-OneShot initialization) at EuRoC size, 752×480, with the capacities of
-bench.py:159-182 — on the card, and checks it end to end. Phases, one JSON
-line each:
+Drives the port's main paths on the card and checks them end to end:
+``DevicePipelineMono`` (mono VO tracking, OneShot initialization) and
+``DevicePipelineVIO`` (FivePoint initialization, IMU, window backend: the
+configuration bench.py drives), both at EuRoC size, 752×480, with the
+capacities of bench.py:159-184. Phases, one JSON line each:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA.
 2. build    every csrc/*.cu compiled with nvcc for sm_90a, in parallel.
@@ -14,7 +15,7 @@ line each:
             (median), the byte/operation bound, and one PyTorch library call
             for the gathers. The gathers: each extract_tiles /
             extract_tiles_ring call (tile origins computed in the kernel)
-            and each origins-given call at the seven path shapes, equal to
+            and each origins-given call at the nine path shapes, equal to
             the plain versions, timed by gather_bench.py in a subprocess
             (the ring also with a cold L2), exactly one CUDA kernel per call
             in its torch.profiler traces, gated, and the device ms per
@@ -27,7 +28,7 @@ line each:
             through four camera models with the prior and alpha/beta off
             and on (N = 360), two cameras on one body, and N = 768: pose
             within 1e-4 rad / 1e-4·depth, n_tracked equal.
-4. slice    ≥ 60 frames of a textured plane: TRACKING from frame 0 on,
+4. slice    40 frames of a textured plane: TRACKING from frame 0 on,
             n_tracked ≥ quality_min_fts, ≥ 2 keyframes, the gathers
             launched on the path and align_level once per pyramid level of
             every sparse alignment, the standalone fused_evaluate not at
@@ -37,7 +38,23 @@ line each:
             launches per frame, idle share, host syncs per frame.
 5. cpu      the same first frames through the port on the CPU; the poses
             must agree with the card's within 5 mm.
+6. vio      ``DevicePipelineVIO`` (FivePoint init, window backend, 200 Hz
+            IMU) in bench.py's mono_vio_degraded_imagery configuration on
+            its degraded sphere scene (bench.py:159-222): 20 warm-up and
+            120 timed frames; fps overall / steady (best of three chunks),
+            median frame ms, per-stage and backend ms per call (CUDA
+            events), accuracy (Sim3/SE3 ATE, scale error) and peak memory.
+            Gates: TRACKING on ≥ 90% of the timed frames and within the
+            warm-up, backend ≥ 2 states with finite chi2 > 0, Sim3 ATE <
+            0.15 × path, gather_tiles launched in the bootstrap frames,
+            align_level once per level of every sparse alignment and
+            fused_evaluate never.
+   vio_profile  7 frames holding a backend call, as the profile phase.
+   vio_cpu  the same frames through the bootstrap + 2 on the CPU: the same
+            stages and poses within 5 mm of a card run.
 
+The ``kernels`` line's ``launches`` are the vio run's, counted from 0 just
+before it (``launches_mono_slice``: the slice run's).
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Needs one CUDA card; imports nothing of JAX.
@@ -56,9 +73,14 @@ import torch
 
 from svo_pro_universal_tpu_torch.cameras.projections import (
     Camera, DistortionModel, ProjectionModel)
+from svo_pro_universal_tpu_torch.cameras.rig import ImuParams
 from svo_pro_universal_tpu_torch.config import Config
+from svo_pro_universal_tpu_torch.evaluation import ate_rmse
 from svo_pro_universal_tpu_torch.frontend.frame_handler import Stage
+from svo_pro_universal_tpu_torch.frontend.imu_handler import ImuHandler
 from svo_pro_universal_tpu_torch.frontend.pipeline import DevicePipelineMono
+from svo_pro_universal_tpu_torch.frontend.pipeline_vio import (
+    DevicePipelineVIO)
 from svo_pro_universal_tpu_torch.ops import _cuda, cuda_align, cuda_tiles
 from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
 from svo_pro_universal_tpu_torch.ops import tiles
@@ -69,7 +91,7 @@ from svo_pro_universal_tpu_torch.utils.transform import se3_exp
 W, H = 752, 480
 INTR = (460.0, 460.0, 376.0, 240.0)
 PLANE_Z = 2.5
-N_FRAMES = 64
+N_FRAMES = 40
 N_CPU_FRAMES = 5
 POSE_TOL_M = 5e-3
 ALIGN_ROT_TOL = 1e-4       # rad, align_level vs its plain version
@@ -161,7 +183,7 @@ def bench_gathers() -> list[dict]:
 
 
 def gather_cases(bw: float, cases: list) -> dict:
-    """Both gathers at the seven shapes of the path, on gather_bench.py's
+    """Both gathers at the nine shapes of the path, on gather_bench.py's
     inputs (gather_shapes.path_inputs, same seed): one extract_tiles /
     extract_tiles_ring call (centres mode) against extract_tiles_plain and
     the origins-given gather against gather_tiles_plain, torch.equal; the
@@ -433,10 +455,11 @@ STAGES = ("_stage_align", "_stage_reproject", "_stage_pose",
           "_keyframe_step")
 
 
-def time_stages(pipe, events: list) -> None:
-    """Wrap the pipeline's stage methods with CUDA-event pairs."""
-    for name in STAGES:
-        fn = getattr(pipe, name)
+def time_methods(obj, names, events: list) -> None:
+    """Wrap methods of ``obj`` (a pipeline's stages) with CUDA-event
+    pairs."""
+    for name in names:
+        fn = getattr(obj, name)
 
         def timed(*a, _fn=fn, _name=name, **k):
             s = torch.cuda.Event(enable_timing=True)
@@ -446,7 +469,7 @@ def time_stages(pipe, events: list) -> None:
             e.record()
             events.append((_name, s, e))
             return out
-        setattr(pipe, name, timed)
+        setattr(obj, name, timed)
 
 
 def run_slice(frames: list, device: str, timed: bool = False):
@@ -455,7 +478,7 @@ def run_slice(frames: list, device: str, timed: bool = False):
                               device=device)
     events: list = []
     if timed:
-        time_stages(pipe, events)
+        time_methods(pipe, STAGES, events)
     wall = []
     for t, img in enumerate(frames):
         t0 = time.perf_counter()
@@ -471,15 +494,24 @@ def profile_frames(frames: list) -> dict:
     """Device busy time and kernel launches per frame from torch.profiler,
     and the host↔device synchronizations per frame from PyTorch's sync
     debug mode, over a short run of the slice."""
+    run_slice(frames[:2], "cuda")              # warm-up
+    return profile_run(lambda: run_slice(frames, "cuda"),
+                       lambda: run_slice(frames, "cuda"), len(frames))
+
+
+def profile_run(run, run_sync, n: int) -> dict:
+    """torch.profiler over ``run()`` (n frames): device busy ms, kernel
+    launches, the port kernels' launches and device ms; then the host syncs
+    of ``run_sync()`` (another n frames) in PyTorch's sync debug mode."""
     import warnings
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run_slice(frames[:2], "cuda")              # warm-up
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_slice(frames, "cuda")
+        run()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -493,7 +525,6 @@ def profile_frames(frames: list) -> dict:
                        "cudaMemcpyAsync"})
     launch_ms = host_ms({"cudaLaunchKernel", "cudaLaunchKernelExC",
                          "cuLaunchKernel", "cuLaunchKernelEx"})
-    n = len(frames)
     # the port's own __global__ functions: launches per frame and device
     # ms per launch
     port = {}
@@ -510,7 +541,7 @@ def profile_frames(frames: list) -> dict:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode(1)
         try:
-            run_slice(frames, "cuda")
+            run_sync()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     syncs = sum("synchroniz" in str(w.message) for w in caught)
@@ -522,6 +553,234 @@ def profile_frames(frames: list) -> dict:
             "host_sync_wait_ms_per_frame": sync_ms / n,
             "host_launch_api_ms_per_frame": launch_ms / n,
             "host_syncs_per_frame": syncs / n, "port_kernels": port}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: mono VIO (FivePoint init, window backend) on bench.py's scene
+# ---------------------------------------------------------------------------
+
+VIO_FRAMES = 140             # bench.py:186-187
+VIO_WARMUP = 20
+VIO_CPU_TRACKING = 2         # tracking frames after the bootstrap, on CPU
+VIO_PROFILE_AT = 40          # the profiled window starts at this frame
+VIO_PROFILE_FRAMES = 7       # ≥ one backend call (temporal states ≤ 0.3 s)
+VIO_STAGES = STAGES + ("_branch_init", "_klt_track", "_vio_backend_step")
+BACKEND_PROGRAMS = ("_step_program", "_marginalize_program",
+                    "_apply_program")
+# JAX on a TPU, same scene and gates (BENCH_r05.json); accuracy only
+JAX_REFERENCE = {"ate_m": 0.009, "ate_se3_m": 0.0481, "scale_error": 0.1152,
+                 "n_tracking": "120/120"}
+
+
+def vio_config(cell_size: int = 30) -> Config:
+    """bench.py:159-184, the mono_vio_degraded_imagery configuration
+    (FivePoint initialization, the Config default)."""
+    cfg = Config()
+    cfg.capacity.max_fts = 360
+    cfg.capacity.max_kfs = 8
+    cfg.capacity.max_points = 4096
+    cfg.n_pyr_levels = 4
+    cfg.detector.cell_size = cell_size
+    cfg.detector.threshold_primary = 8.0
+    cfg.init.init_min_disparity = 20.0
+    cfg.init.reproj_error_thresh = 1.0
+    cfg.init.expected_avg_depth = 3.4
+    cfg.init.init_min_features = 60
+    cfg.init.init_min_tracked = 40
+    cfg.init.init_min_inliers = 30
+    cfg.depth_filter.seed_convergence_sigma2_thresh = 60.0
+    cfg.base.quality_min_fts = 20
+    cfg.base.kfselect_numkfs_lower_thresh = 60
+    cfg.base.kfselect_min_disparity = 30.0
+    cfg.base.kfselect_min_dist_metric = 0.1
+    cfg.reprojector.max_n_features_per_frame = 200
+    cfg.backend.num_keyframes = 5
+    cfg.backend.max_iterations = 3
+    return cfg
+
+
+class VioRun:
+    """DevicePipelineVIO on one device, fed like bench.py's Feeder
+    (bench.py:139-148): the IMU up to each frame's time, then the frame."""
+
+    def __init__(self, cam: Camera, cfg: Config, imu_meas: list, device,
+                 n_frames: int):
+        self.imu = ImuHandler(ImuParams())
+        self.pipe = DevicePipelineVIO(cfg, cam, imu_handler=self.imu,
+                                      imu_params=ImuParams(),
+                                      trace_capacity=n_frames + 1,
+                                      device=device)
+        self.imu_meas = imu_meas
+        self.i_imu = 0
+        self.device = torch.device(device)
+
+    def feed(self, frames: list, t0: int, t1: int, wall=None) -> None:
+        for t in range(t0, t1):
+            ts = t * syn.CAM_DT
+            while (self.i_imu < len(self.imu_meas)
+                   and self.imu_meas[self.i_imu][0] <= ts):
+                self.imu.add_measurement(*self.imu_meas[self.i_imu])
+                self.i_imu += 1
+            c0 = time.perf_counter()
+            self.pipe.add_image(frames[t], ts)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            if wall is not None:
+                wall.append(time.perf_counter() - c0)
+
+
+def count_launches_in(obj, name: str, kernel: _cuda.Kernel,
+                      log: list) -> None:
+    """Record the launches of ``kernel`` made inside each call of
+    ``obj.name``."""
+    fn = getattr(obj, name)
+
+    def counted(*a, **k):
+        before = kernel.launches
+        out = fn(*a, **k)
+        log.append(kernel.launches - before)
+        return out
+    setattr(obj, name, counted)
+
+
+def vio_phase(smi: str) -> dict:
+    """bench.py's mono VIO on the card: 20 warm-up frames (bootstrap and
+    first keyframes), 120 timed frames in three chunks; accuracy against
+    the ground truth; the gates. Returns the launch counts of the run."""
+    cam = Camera.pinhole(*syn.BENCH_INTRINSICS, syn.BENCH_W, syn.BENCH_H)
+    t0 = time.perf_counter()
+    poses, frames, imu_meas = syn.bench_sequence(VIO_FRAMES, 7, "cuda")
+    data_s = time.perf_counter() - t0
+    cfg = vio_config()
+    run = VioRun(cam, cfg, imu_meas, "cuda", VIO_FRAMES)
+    pipe = run.pipe
+    events: list = []
+    time_methods(pipe, VIO_STAGES, events)
+    time_methods(pipe.backend, BACKEND_PROGRAMS, events)
+    init_gathers: list = []
+    count_launches_in(pipe, "_branch_init", cuda_tiles.GATHER_TILES,
+                      init_gathers)
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_counts()
+    wall: list = []
+    run.feed(frames, 0, VIO_WARMUP, wall)
+    edges = [VIO_WARMUP + (VIO_FRAMES - VIO_WARMUP) * i // 3
+             for i in range(4)]
+    chunk_fps = []
+    for a, b in zip(edges[:-1], edges[1:]):
+        c0 = time.perf_counter()
+        run.feed(frames, a, b, wall)
+        chunk_fps.append((b - a) / (time.perf_counter() - c0))
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    torch.cuda.synchronize()
+    mats, meta = pipe.drain()
+    stage_ms: dict = {}
+    for nm, s, e in events:
+        c, t = stage_ms.get(nm, (0, 0.0))
+        stage_ms[nm] = (c + 1, t + s.elapsed_time(e))
+    stages = meta[:, 0].astype(int)
+    n_timed = VIO_FRAMES - VIO_WARMUP
+    n_tracking = int((stages[VIO_WARMUP:] == Stage.TRACKING.value).sum())
+    tracking = stages == Stage.TRACKING.value
+    first_track = int(np.argmax(tracking)) if tracking.any() else -1
+    timed_wall = np.asarray(wall[VIO_WARMUP:])
+    gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])
+    w = pipe.world
+    line = {
+        "phase": "vio", "card": smi, "config": "mono_vio_degraded_imagery",
+        "resolution": [syn.BENCH_W, syn.BENCH_H], "frames": VIO_FRAMES,
+        "warmup": VIO_WARMUP, "data_s": data_s,
+        "fps_overall": float(n_timed / timed_wall.sum()),
+        "fps_steady": float(max(chunk_fps)), "fps_chunks": chunk_fps,
+        "frame_ms_median": float(np.median(timed_wall) * 1e3),
+        "n_tracking": n_tracking, "n_timed": n_timed,
+        "first_tracking_frame": first_track,
+        "backend_keyframes": w.backend_k,
+        "backend_chi2": float(w.backend_chi2),
+        # LM iterations of the window solve, and those whose state step a
+        # once-seen landmark voided (window_ba.solve_schur)
+        "backend_lm_iterations": pipe.backend.lm_iterations,
+        "backend_lm_voided": int(pipe.backend.lm_voided),
+        "backend_lm_voided_share": (int(pipe.backend.lm_voided)
+                                    / max(pipe.backend.lm_iterations, 1)),
+        "depth_med_final": float(w.depth_state[0]),
+        "stage_ms_per_call": {k.lstrip("_"): t / c
+                              for k, (c, t) in stage_ms.items()},
+        "stage_calls": {k.lstrip("_"): c for k, (c, _) in stage_ms.items()},
+        "launches": counts,
+        "launches_per_frame": {k: v / VIO_FRAMES for k, v in counts.items()},
+        "gather_launches_in_init_frames": init_gathers,
+        "peak_mem_MB": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "jax_reference_accuracy_tpu": JAX_REFERENCE}
+    if first_track >= 0:
+        ep = mats[first_track:, :3, 3]
+        g = gt[first_track:]
+        ate, a3 = ate_rmse(ep, g, align="sim3")
+        ate_se3, _ = ate_rmse(ep, g, align="se3")
+        line |= {"ate_m": ate, "ate_se3_m": ate_se3,
+                 "scale_error": abs(float(a3.s) - 1.0),
+                 "traj_len_m": float(np.linalg.norm(np.diff(g, axis=0),
+                                                    axis=-1).sum())}
+    emit(line)
+
+    # ---- gates ---------------------------------------------------------
+    if n_tracking < 0.9 * n_timed:
+        fail(f"vio: TRACKING on {n_tracking}/{n_timed} timed frames")
+    if not 0 <= first_track < VIO_WARMUP:
+        fail(f"vio: TRACKING first reached at frame {first_track}")
+    if not (w.backend_k >= 2 and np.isfinite(line["backend_chi2"])
+            and line["backend_chi2"] > 0):
+        fail(f"vio: backend {w.backend_k} states, chi2 "
+             f"{line['backend_chi2']}")
+    if not (np.isfinite(mats).all()
+            and line["ate_m"] < 0.15 * line["traj_len_m"]):
+        fail(f"vio: Sim3 ATE {line['ate_m']} m over "
+             f"{line['traj_len_m']} m")
+    if not init_gathers or min(init_gathers) <= 0:
+        fail(f"vio: gather_tiles launches in the init frames "
+             f"{init_gathers}")
+    ia = cfg.img_align
+    n_align = stage_ms.get("_stage_align", (0, 0.0))[0]
+    if (n_align == 0 or counts["align_level"]
+            != (ia.max_level - ia.min_level + 1) * n_align
+            or counts["fused_evaluate"] != 0):
+        fail(f"vio: {counts['align_level']} align_level and "
+             f"{counts['fused_evaluate']} fused_evaluate launches for "
+             f"{n_align} sparse alignments")
+
+    # ---- profile: a window holding a backend call ----------------------
+    # (a second card run of the same frames, which also gives the card's
+    # trace right after the bootstrap for the CPU comparison below: the
+    # first run's trace is rescaled by every later scale correction)
+    n_cpu = first_track + 1 + VIO_CPU_TRACKING
+    prof_run = VioRun(cam, cfg, imu_meas, "cuda", VIO_FRAMES)
+    prof_run.feed(frames, 0, n_cpu)
+    card_mats, card_meta = prof_run.pipe.drain()
+    prof_run.feed(frames, n_cpu, VIO_PROFILE_AT)
+    a, n = VIO_PROFILE_AT, VIO_PROFILE_FRAMES
+    k0 = prof_run.pipe.world.last_kf_ts
+    prof = profile_run(lambda: prof_run.feed(frames, a, a + n),
+                       lambda: prof_run.feed(frames, a + n, a + 2 * n), n)
+    prof |= {"phase": "vio_profile", "card": smi, "frames": [a, a + n],
+             "backend_calls_in_window": int(prof_run.pipe.world.last_kf_ts
+                                            != k0)}
+    emit(prof)
+
+    # ---- the same frames through the bootstrap on the CPU --------------
+    cpu = VioRun(cam, cfg, imu_meas, "cpu", VIO_FRAMES)
+    c0 = time.perf_counter()
+    cpu.feed(frames, 0, n_cpu)
+    cmats, cmeta = cpu.pipe.drain()
+    gap = np.linalg.norm(cmats[:, :3, 3] - card_mats[:, :3, 3], axis=-1)
+    same = bool((cmeta[:, 0] == card_meta[:, 0]).all())
+    emit({"phase": "vio_cpu", "frames": n_cpu, "max_pos_gap_m":
+          float(gap.max()), "stages_equal": same,
+          "stages": cmeta[:, 0].astype(int).tolist(),
+          "cpu_s": time.perf_counter() - c0})
+    if gap.max() > POSE_TOL_M or not same:
+        fail(f"vio: card and CPU disagree: gap {gap.max()} m, stages "
+             f"{cmeta[:, 0].tolist()} vs {card_meta[:, 0].tolist()}")
+    return counts
 
 
 def main() -> None:
@@ -619,13 +878,16 @@ def main() -> None:
                                       == meta[:N_CPU_FRAMES, 0]).all():
         fail(f"card and CPU runs disagree: position gap {gap.max()} m")
 
+    vio_counts = vio_phase(smi)
+
     kernels = []
     for k in _cuda.KERNELS:
         c = main_cases[k.name]
         entry = dict(
             name=k.name, route="cuda",
             source=f"svo_pro_universal_tpu_torch/csrc/{k.source}",
-            replaces=k.replaces, launches=counts[k.name],
+            replaces=k.replaces, launches=vio_counts[k.name],
+            launches_mono_slice=counts[k.name],
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"])

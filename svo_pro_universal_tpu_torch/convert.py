@@ -8,8 +8,11 @@ device, and ``to_numpy`` turns the port's objects back into such dicts. This
 is what lets a test start both implementations from the same world state.
 
 Integer arrays become int64 tensors here and int32 arrays on the way back
-(the JAX package's index type); floats are float32. Keys the port has no
-use for (the JAX world's PRNG key and initialization buffers) are ignored.
+(the JAX package's index type); floats are float32. The JAX world's PRNG
+key has no counterpart: the port's world carries a seeded CPU
+``torch.Generator`` instead, and tests that need the JAX draws inject the
+JAX noise (frontend.initialization). Host-side counters of the port (stage,
+window and buffer counts, keyframe clocks) are Python scalars.
 """
 
 from __future__ import annotations
@@ -20,12 +23,18 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from svo_pro_universal_tpu_torch.backend.device_interface import (
+    DeviceBackendState)
+from svo_pro_universal_tpu_torch.backend.imu_factor import PreintFactor
+from svo_pro_universal_tpu_torch.backend.window_ba import Window
 from svo_pro_universal_tpu_torch.cameras.projections import Camera
+from svo_pro_universal_tpu_torch.cameras.rig import ImuParams
 from svo_pro_universal_tpu_torch.common.frame import FrameState
 from svo_pro_universal_tpu_torch.common.point import LandmarkPool
 from svo_pro_universal_tpu_torch.config import Config
 from svo_pro_universal_tpu_torch.frontend.map import KeyframeRing
 from svo_pro_universal_tpu_torch.frontend.pipeline import WorldState
+from svo_pro_universal_tpu_torch.frontend.pipeline_vio import WorldStateVIO
 from svo_pro_universal_tpu_torch.utils.transform import SE3
 
 
@@ -83,22 +92,70 @@ def pool(d: Mapping, device=None) -> LandmarkPool:
                            for k in LandmarkPool._fields})
 
 
-def world(d: Mapping, device=None) -> WorldState:
-    """A port WorldState from a JAX ``WorldState`` dict."""
+def world(d: Mapping, device=None, seed: int = 0) -> WorldState:
+    """A port WorldState from a JAX ``WorldState`` dict; the RANSAC
+    generator is seeded with ``seed``."""
     return WorldState(
         stage=int(d["stage"]),
         ring=ring(d["ring"], device),
         pool=pool(d["pool"], device),
         last_frame=frame(d["last_frame"], device),
+        init_ref=frame(d["init_ref"], device),
+        init_px=tensor(d["init_px"], device),
         T_rel_prev=se3(d["T_rel_prev"], device),
         depth_state=tensor(d["depth_state"], device),
         frames_since_kf=int(d["frames_since_kf"]),
         prev_n_tracked=int(d["prev_n_tracked"]),
         reloc_trials=int(d["reloc_trials"]),
+        rng=torch.Generator().manual_seed(seed),
         trace_q=tensor(d["trace_q"], device),
         trace_t=tensor(d["trace_t"], device),
         trace_meta=np.asarray(d["trace_meta"], np.float32).copy(),
         trace_ptr=int(d["trace_ptr"]))
+
+
+def preint_factor(d: Mapping, device=None) -> PreintFactor:
+    return PreintFactor(**{k: tensor(d[k], device)
+                           for k in PreintFactor._fields})
+
+
+def window(d: Mapping, device=None) -> Window:
+    """A port backend Window from a JAX ``Window`` dict."""
+    return Window(**{k: preint_factor(d[k], device) if k == "imu"
+                     else tensor(d[k], device) for k in Window._fields})
+
+
+def imu_params(d: Mapping) -> ImuParams:
+    return ImuParams(**{k: d[k] for k in ImuParams.__dataclass_fields__})
+
+
+def backend_state(d: Mapping, device=None) -> DeviceBackendState:
+    """A port DeviceBackendState from a JAX one: the buffer count and clock
+    become host scalars (the port branches on them on the host)."""
+    host = {"abuf_n": int, "next_age": int,
+            "abuf_last_ts": np.float32}
+    out = {}
+    for k in DeviceBackendState._fields:
+        if k == "window":
+            out[k] = window(d[k], device)
+        elif k == "abuf_imu":
+            out[k] = preint_factor(d[k], device)
+        elif k in host:
+            out[k] = host[k](np.asarray(d[k]))
+        else:
+            out[k] = tensor(d[k], device)
+    return DeviceBackendState(**out)
+
+
+def world_vio(d: Mapping, device=None, seed: int = 0) -> WorldStateVIO:
+    """A port WorldStateVIO from a JAX ``WorldStateVIO`` dict."""
+    base = world(d, device, seed)
+    return WorldStateVIO(
+        *base, backend=backend_state(d["backend"], device),
+        backend_k=int(d["backend_k"]),
+        last_kf_ts=np.float32(d["last_kf_ts"]),
+        imu_packed=tensor(d["imu_packed"], device),
+        backend_chi2=tensor(d["backend_chi2"], device))
 
 
 def to_numpy(obj: Any) -> Any:
@@ -113,8 +170,10 @@ def to_numpy(obj: Any) -> Any:
                     intrinsics=to_numpy(obj.intrinsics),
                     dist_params=to_numpy(obj.dist_params),
                     width=obj.width, height=obj.height, label=obj.label)
-    if isinstance(obj, Config):
+    if dataclasses.is_dataclass(obj):
         return dataclasses.asdict(obj)
+    if isinstance(obj, torch.Generator):
+        return None
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return {k: to_numpy(v) for k, v in zip(obj._fields, obj)}
     return obj

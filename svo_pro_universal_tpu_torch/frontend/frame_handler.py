@@ -30,6 +30,7 @@ from svo_pro_universal_tpu_torch.config import Config
 from svo_pro_universal_tpu_torch.frontend import reprojector as repro_mod
 from svo_pro_universal_tpu_torch.frontend.map import (
     KeyframeRing, eviction_slot, insert_keyframe, overlap_mask)
+from svo_pro_universal_tpu_torch.ops import alignment as align_mod
 from svo_pro_universal_tpu_torch.ops import depth_filter as df_mod
 from svo_pro_universal_tpu_torch.ops import detector as det_mod
 from svo_pro_universal_tpu_torch.ops import matcher as matcher_mod
@@ -103,6 +104,11 @@ class FrameHandlerMono:
         self.n_cols = -(-cam.width // cs)
         self.n_rows = -(-cam.height // cs)
         self.n_cells = self.n_cols * self.n_rows
+        # landmarks refined per frame by the structure stage (reference
+        # optimizeStructure frame_handler_base.cpp:779); the VIO pipeline
+        # sets 0, its window backend owns landmark refinement
+        self._structure_max_pts = int(
+            cfg.base.structure_optimization_max_pts)
 
     # ------------------------------------------------------------------
     def _stage_align(self, ring, pool, last_frame, cur_pyramid, T_prior_rel):
@@ -199,7 +205,11 @@ class FrameHandlerMono:
 
     def _stage_structure(self, ring, pool, frame):
         """Stage 4: per-point structure GN on the longest-unoptimized
-        landmarks with enough parallax. Returns pool."""
+        landmarks with enough parallax. Returns pool (unchanged, and nothing
+        launched, when the point budget is 0, as with a window backend)."""
+        max_pts = self._structure_max_pts
+        if max_pts <= 0:
+            return pool
         lid = frame.landmark_id
         has_lm = (lid >= 0) & frame.valid_mask()
         lidc = torch.clamp(lid, 0, pool.capacity - 1)
@@ -224,11 +234,8 @@ class FrameHandlerMono:
         parallax_ok = max_base > 0.08 * torch.amin(
             torch.where(obs_ok, depth_o, float("inf")), dim=-1)
         cand = has_lm & enough & parallax_ok & ~pool.fixed[lidc]
-        max_pts = int(self.cfg.base.structure_optimization_max_pts)
         n = lidc.shape[0]
-        if max_pts <= 0:
-            chosen = torch.zeros((n,), dtype=torch.bool, device=self.device)
-        elif max_pts < n:
+        if max_pts < n:
             age = pool.last_structure_optim[lidc].to(torch.float32)
             _, sel_rows = topk_stable(torch.where(cand, -age,
                                                   float("-inf")), max_pts)
@@ -409,6 +416,30 @@ class FrameHandlerMono:
             is_keyframe=torch.ones((), dtype=torch.bool, device=dev))
         ring = insert_keyframe(ring, frame, new_slot)
         return ring, pool, frame, torch.sum(converged.long()), n_new
+
+    def _klt_track(self, ref_frame, cur_pyramid, px_ref, valid,
+                   px_init=None):
+        """Pyramidal KLT with a bidirectional consistency check: a track
+        must map back to its ref position within 1 px (JAX
+        frame_handler.py:664-690). ``px_init`` is the previous frame's
+        track positions during initialization (the reference's
+        FeatureTracker is incremental, feature_tracker.cpp:52-84)."""
+        tr = self.cfg.tracker
+        max_level = min(tr.klt_max_level, self.n_levels - 1)
+        sizes = [tr.klt_patch_size] * (max_level + 1)
+        fwd = align_mod.align_pyr_2d(
+            ref_frame.pyramid, cur_pyramid, px_ref,
+            px_ref if px_init is None else px_init,
+            max_level=max_level, min_level=tr.klt_min_level,
+            patch_sizes=sizes, n_iter=tr.klt_max_iter, valid=valid)
+        bwd = align_mod.align_pyr_2d(
+            cur_pyramid, ref_frame.pyramid, fwd.px, fwd.px,
+            max_level=max_level, min_level=tr.klt_min_level,
+            patch_sizes=sizes, n_iter=tr.klt_max_iter,
+            valid=valid & fwd.converged)
+        roundtrip = torch.linalg.norm(bwd.px - px_ref, dim=-1)
+        ok = valid & fwd.converged & bwd.converged & (roundtrip < 1.0)
+        return fwd.px, ok
 
     def _detect_into_frame(self, frame: FrameState, depth_scalars):
         """Fill free feature slots with fresh detections and seed states

@@ -3,16 +3,22 @@
 Counterpart of ``svo_pro_universal_tpu/frontend/pipeline.py``. The JAX
 package runs the whole state machine in one jitted program and branches with
 ``lax.switch`` / ``lax.cond``. PyTorch runs eagerly, so here the stage
-(first frame, tracking, relocalization) is a host integer, and each frame
-makes ONE small device→host read of the values the branch needs
-(n_tracked, median disparity, keyframe-too-close): the keyframe step runs
-only when the host decides it, instead of being computed every frame and
-selected. That read, and the upload of the uint8 image, are the frame's two
-synchronizations with the card; everything else is queued asynchronously.
-The pose trace stays on the device until ``drain()``.
+(first frame, initializing, tracking, relocalization) is a host integer, and
+each frame makes ONE small device→host read of the values the branch needs
+(tracking: n_tracked, median disparity, keyframe-too-close; initializing:
+n_tracked and disparity, plus n_inliers on a frame that tries RANSAC): the
+keyframe step and the two-view bootstrap run only when the host decides it,
+instead of being computed every frame and selected. That read, and the
+upload of the uint8 image, are the frame's synchronizations with the card
+(the RANSAC's eigh/SVD add their own on the few frames that run it);
+everything else is queued asynchronously. The pose trace stays on the
+device until ``drain()``.
 
-Initialization is OneShot (every first-frame feature becomes a landmark at
-``cfg.init.expected_avg_depth``); FivePoint (KLT + RANSAC) is a later slice.
+Initialization: OneShot (every first-frame feature becomes a landmark at
+``cfg.init.expected_avg_depth``) or, for every other ``init_method`` as in
+the JAX package, FivePoint: KLT tracks from the first keyframe plus the
+batched 8-point LO-RANSAC (frontend.initialization), whose Gumbel noise is
+drawn from a CPU ``torch.Generator`` seeded by ``seed``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from svo_pro_universal_tpu_torch.common.frame import (
 from svo_pro_universal_tpu_torch.common.point import (
     LandmarkPool, add_observations, allocate, make_pool)
 from svo_pro_universal_tpu_torch.config import Config
+from svo_pro_universal_tpu_torch.frontend import initialization as init_mod
 from svo_pro_universal_tpu_torch.frontend.frame_handler import (
     FrameHandlerMono, Stage, resolve_device)
 from svo_pro_universal_tpu_torch.frontend.map import (
@@ -37,7 +44,10 @@ from svo_pro_universal_tpu_torch.frontend.map import (
 from svo_pro_universal_tpu_torch.ops.detector import SUPPORTED_DETECTORS
 from svo_pro_universal_tpu_torch.ops.pyramid import (
     build_pyramid, image_to_float)
-from svo_pro_universal_tpu_torch.utils.transform import SE3, quat_normalize
+from svo_pro_universal_tpu_torch.utils.transform import (
+    SE3, matrix_to_quat_np, quat_normalize, quat_to_matrix)
+
+N_HYPOTHESES = 128     # RANSAC hypotheses of the FivePoint bootstrap
 
 
 class WorldState(NamedTuple):
@@ -47,28 +57,33 @@ class WorldState(NamedTuple):
     ring: KeyframeRing
     pool: LandmarkPool
     last_frame: FrameState
+    init_ref: FrameState        # first keyframe during initialization
+    init_px: torch.Tensor       # [N, 2] incremental KLT guesses (init)
     T_rel_prev: SE3             # constant-velocity model
     depth_state: torch.Tensor   # [2] = (depth_median, depth_min)
     frames_since_kf: int
     prev_n_tracked: int
     reloc_trials: int
+    rng: torch.Generator        # CPU generator of the RANSAC noise
     trace_q: torch.Tensor       # [CAP, 4] T_world_cam quaternion (device)
     trace_t: torch.Tensor       # [CAP, 3] T_world_cam translation (device)
     trace_meta: np.ndarray      # [CAP, 4] (stage, n_tracked, is_kf, ts)
     trace_ptr: int
 
 
+def _zeroed(ring: KeyframeRing) -> KeyframeRing:
+    zeros = torch.zeros_like
+    return KeyframeRing(frame_map(zeros, ring.frames), zeros(ring.valid),
+                        zeros(ring.last_added))
+
+
 class DevicePipelineMono(FrameHandlerMono):
-    """Mono VO with OneShot initialization: one tracking step per frame,
-    a keyframe step when the keyframe policy fires."""
+    """Mono VO: one tracking step per frame, a keyframe step when the
+    keyframe policy fires, OneShot or FivePoint initialization."""
 
     def __init__(self, cfg: Config, cam: proj.Camera,
-                 T_cam_body: Optional[SE3] = None,
-                 trace_capacity: int = 8192, device=None):
-        if cfg.init.init_method != "OneShot":
-            raise NotImplementedError(
-                f"init_method {cfg.init.init_method!r}: the port runs "
-                "OneShot; FivePoint (KLT + RANSAC) is a later slice")
+                 T_cam_body: Optional[SE3] = None, seed: int = 0,
+                 imu_handler=None, trace_capacity: int = 8192, device=None):
         if cfg.detector.detector_type not in SUPPORTED_DETECTORS:
             raise NotImplementedError(
                 f"detector_type {cfg.detector.detector_type!r}: the port "
@@ -80,6 +95,12 @@ class DevicePipelineMono(FrameHandlerMono):
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         super().__init__(cfg, cam, T_cam_body=T_cam_body, device=dev)
+        self.seed = seed
+        self.imu = imu_handler
+        Tcb = T_cam_body if T_cam_body is not None else SE3.identity()
+        self._R_cam_body_np = quat_to_matrix(
+            Tcb.q.detach().cpu()).numpy().astype(np.float64)
+        self._last_ts: Optional[float] = None
         self.trace_capacity = trace_capacity
         self._t_epoch: Optional[float] = None
         self.world = self._make_world()
@@ -107,20 +128,37 @@ class DevicePipelineMono(FrameHandlerMono):
             stage=Stage.FIRST_FRAME.value,
             ring=make_ring(template, cap.max_kfs),
             pool=make_pool(cap.max_points, cap.max_obs_per_point, dev),
-            last_frame=template,
+            last_frame=template, init_ref=template,
+            init_px=torch.zeros((self.max_fts, 2), dtype=torch.float32,
+                                device=dev),
             T_rel_prev=SE3.identity(device=dev),
             depth_state=torch.tensor([d0, 0.1 * d0], dtype=torch.float32,
                                      device=dev),
             frames_since_kf=0, prev_n_tracked=0, reloc_trials=0,
+            rng=torch.Generator().manual_seed(self.seed),
             trace_q=trace_q,
             trace_t=torch.zeros((C, 3), dtype=torch.float32, device=dev),
             trace_meta=np.zeros((C, 4), np.float32),
             trace_ptr=0)
 
+    def _init_noise(self, world: WorldState, n_hyp: int, n: int
+                    ) -> torch.Tensor:
+        """Gumbel noise [n_hyp, n] of one RANSAC call, from the world's
+        CPU generator."""
+        return init_mod.gumbel_noise(world.rng, (n_hyp, n), self.device)
+
+    def _reset_world_extras(self, world):
+        """Hook for subclasses to clear their extra world fields on a full
+        restart (initialization lost, relocalization given up); the VIO
+        pipeline empties its backend window here."""
+        return world
+
     # ------------------------------------------------------------------
-    # stage branches: (world, frame) → (world', n_tracked, is_kf)
+    # stage branches: (world, frame, ts, T_prior_rel) → (world', n_tracked,
+    # is_kf)
     # ------------------------------------------------------------------
-    def _branch_first_frame(self, world: WorldState, frame: FrameState):
+    def _branch_first_frame(self, world: WorldState, frame: FrameState,
+                            ts: float, T_prior_rel: SE3):
         cfg = self.cfg
         frame, n_new_t = self._detect_into_frame(frame, world.depth_state)
         n_new = int(n_new_t)                      # the frame's one read
@@ -129,6 +167,15 @@ class DevicePipelineMono(FrameHandlerMono):
             (), enough, dtype=torch.bool, device=self.device))
         if not enough:
             return world._replace(last_frame=frame), n_new, False
+        zero = torch.zeros((), dtype=torch.long, device=self.device)
+        if cfg.init.init_method != "OneShot":
+            # FivePoint: the first keyframe; KLT tracks from it until the
+            # two-view bootstrap succeeds
+            world = world._replace(
+                stage=Stage.INITIALIZING.value,
+                ring=insert_keyframe(world.ring, frame, zero),
+                last_frame=frame, init_ref=frame, init_px=frame.px)
+            return world, n_new, True
         # constant-depth bootstrap (reference: OneShotInit)
         valid = frame.valid_mask()
         pts_w = frame.T_world_cam.apply(frame.f
@@ -141,13 +188,80 @@ class DevicePipelineMono(FrameHandlerMono):
             landmark_id=torch.where(valid, slots, -1),
             ftype=torch.where(valid, int(ft.FeatureType.CORNER),
                               frame.ftype))
-        zero = torch.zeros((), dtype=torch.long, device=self.device)
         world = world._replace(
             stage=Stage.TRACKING.value,
             ring=insert_keyframe(world.ring, fr, zero), pool=pool,
             last_frame=fr, T_rel_prev=SE3.identity(device=self.device),
             frames_since_kf=0)
         return world, n_new, True
+
+    def _branch_init(self, world: WorldState, frame: FrameState,
+                     ts: float, T_prior_rel: SE3):
+        """Second-keyframe search: KLT tracks + RANSAC relative pose
+        (reference processSecondFrame frame_handler_mono.cpp:82-117,
+        FivePointInit initialization.cpp:292-347; JAX pipeline.py:176-264).
+        The KLT of each frame starts from the previous frame's tracks."""
+        cfg = self.cfg
+        dev = self.device
+        ref = world.init_ref
+        px_cur, ok = self._klt_track(ref, frame.pyramid, ref.px,
+                                     ref.valid_mask(), world.init_px)
+        world = world._replace(
+            init_px=torch.where(ok[:, None], px_cur, world.init_px))
+        n_ok_t = torch.sum(ok.long())
+        disp_t = init_mod.disparity(ref.px, px_cur, ok)
+        n_ok, disp = torch.stack([n_ok_t.float(), disp_t]).tolist()
+        n_ok = int(n_ok)                           # the frame's one read
+        if n_ok < cfg.init.init_min_tracked:
+            # lost too many tracks → restart initialization from scratch
+            world = self._reset_world_extras(world._replace(
+                stage=Stage.FIRST_FRAME.value, ring=_zeroed(world.ring),
+                last_frame=frame))
+            return world, n_ok, False
+        if not disp >= np.float32(cfg.init.init_min_disparity):
+            return world._replace(last_frame=frame), n_ok, False
+
+        f_cur = proj.backproject(self.cam, px_cur)
+        res = init_mod.ransac_relative_pose(
+            ref.f, f_cur, ok, self._init_noise(world, N_HYPOTHESES,
+                                               self.max_fts),
+            self.cam.focal_length,
+            reproj_thresh_px=cfg.init.reproj_error_thresh)
+        T_cur_ref, depths, _ = init_mod.rescale_to_mean_depth(
+            res.T_cur_ref, res.depth_ref, res.inliers,
+            cfg.init.expected_avg_depth)
+        if int(res.n_inliers) < cfg.init.init_min_inliers:   # second read
+            return world._replace(last_frame=frame), n_ok, False
+
+        med = cfg.init.expected_avg_depth
+        inl = ok & res.inliers & (depths > 0.1 * med) & (depths < 5.0 * med)
+        pts_w = ref.f * depths[:, None]
+        pool, slots = allocate(world.pool, pts_w, inl)
+        idx = torch.arange(self.max_fts, device=dev)
+        pool = add_observations(pool, slots, torch.zeros_like(idx), idx, inl)
+        pool = add_observations(pool, slots, torch.ones_like(idx), idx, inl)
+        corner = int(ft.FeatureType.CORNER)
+        ref_upd = ref._replace(
+            landmark_id=torch.where(inl, slots, -1),
+            ftype=torch.where(inl, corner, ref.ftype))
+        ring = insert_keyframe(world.ring, ref_upd,
+                               torch.zeros((), dtype=torch.long, device=dev))
+        fr = frame._replace(
+            T_cam_world=T_cur_ref.compose(ref.T_cam_world),
+            px=px_cur, f=f_cur, grad=ref.grad, level=ref.level,
+            ftype=torch.where(inl, corner, int(ft.FeatureType.INVALID)),
+            landmark_id=torch.where(inl, slots, -1),
+            is_keyframe=torch.ones((), dtype=torch.bool, device=dev))
+        d0 = torch.tensor([med, 0.1 * med], dtype=torch.float32, device=dev)
+        fr, _ = self._detect_into_frame(fr, d0)
+        ring = insert_keyframe(ring, fr,
+                               torch.ones((), dtype=torch.long, device=dev))
+        world = world._replace(
+            stage=Stage.TRACKING.value, ring=ring, pool=pool, last_frame=fr,
+            init_ref=fr,        # drop the stale reference
+            T_rel_prev=SE3.identity(device=dev), depth_state=d0,
+            frames_since_kf=0)
+        return world, n_ok, True
 
     def _is_keyframe(self, world: WorldState, n_tracked: int,
                      med_disp: float, too_close: bool) -> bool:
@@ -165,11 +279,12 @@ class DevicePipelineMono(FrameHandlerMono):
         is_kf &= need_more or gates
         return is_kf and n_tracked >= b.quality_min_fts
 
-    def _branch_tracking(self, world: WorldState, frame: FrameState):
+    def _branch_tracking(self, world: WorldState, frame: FrameState,
+                         ts: float, T_prior_rel: SE3):
         cfg = self.cfg
         ring, pool, tracked, stats = self._tracking_step(
-            world.ring, world.pool, world.last_frame, frame,
-            world.T_rel_prev, world.depth_state)
+            world.ring, world.pool, world.last_frame, frame, T_prior_rel,
+            world.depth_state)
         n_tracked, med_disp, too_close = torch.stack([
             stats["n_tracked"].float(), stats["med_disparity"],
             stats["kf_too_close"].float()]).tolist()   # the frame's one read
@@ -199,7 +314,8 @@ class DevicePipelineMono(FrameHandlerMono):
             prev_n_tracked=n_tracked)
         return world, n_tracked, is_kf
 
-    def _branch_reloc(self, world: WorldState, frame: FrameState):
+    def _branch_reloc(self, world: WorldState, frame: FrameState,
+                      ts: float, T_prior_rel: SE3):
         """Relocalize against the closest keyframe (reference
         relocalizeFrame frame_handler_mono.cpp:254-279)."""
         cfg = self.cfg
@@ -219,35 +335,26 @@ class DevicePipelineMono(FrameHandlerMono):
         trials = world.reloc_trials + 1
         if trials >= cfg.base.relocalization_max_trials:
             # hard reset (reference resetVisionFrontendCommon)
-            zeros = lambda x: torch.zeros_like(x)  # noqa: E731
-            world = world._replace(
-                stage=Stage.FIRST_FRAME.value,
-                ring=KeyframeRing(frame_map(zeros, world.ring.frames),
-                                  zeros(world.ring.valid),
-                                  zeros(world.ring.last_added)),
-                pool=LandmarkPool(*[zeros(x) for x in world.pool]),
-                reloc_trials=0)
+            world = self._reset_world_extras(world._replace(
+                stage=Stage.FIRST_FRAME.value, ring=_zeroed(world.ring),
+                pool=LandmarkPool(*[torch.zeros_like(x)
+                                    for x in world.pool]),
+                reloc_trials=0))
         else:
             world = world._replace(reloc_trials=trials)
         return world, n_tracked, False
 
     # ------------------------------------------------------------------
-    def step(self, world: WorldState, img, ts: float
-             ) -> tuple[WorldState, int, bool]:
-        """One frame through the stage machine, trace appended."""
-        pyr = build_pyramid(image_to_float(img, self.device), self.n_levels)
-        frame = make_empty_frame(pyr, self.max_fts,
-                                 T_cam_body=self.T_cam_body, timestamp=ts)
-        if world.stage == Stage.FIRST_FRAME.value:
-            world, n_tracked, is_kf = self._branch_first_frame(world, frame)
-        elif world.stage == Stage.TRACKING.value:
-            world, n_tracked, is_kf = self._branch_tracking(world, frame)
-        elif world.stage == Stage.RELOCALIZING.value:
-            world, n_tracked, is_kf = self._branch_reloc(world, frame)
-        else:
-            raise NotImplementedError(
-                f"stage {Stage(world.stage).name}: only OneShot "
-                "initialization is ported")
+    def _run_state_machine(self, world: WorldState, frame: FrameState,
+                           ts: float, T_prior_rel: SE3
+                           ) -> tuple[WorldState, int, bool]:
+        """One frame through the stage branch of ``world.stage``, trace
+        appended."""
+        branch = {Stage.FIRST_FRAME.value: self._branch_first_frame,
+                  Stage.INITIALIZING.value: self._branch_init,
+                  Stage.TRACKING.value: self._branch_tracking,
+                  Stage.RELOCALIZING.value: self._branch_reloc}[world.stage]
+        world, n_tracked, is_kf = branch(world, frame, ts, T_prior_rel)
         T_wc = world.last_frame.T_world_cam
         p = min(world.trace_ptr, self.trace_capacity - 1)
         world.trace_q[p] = quat_normalize(T_wc.q)
@@ -255,10 +362,37 @@ class DevicePipelineMono(FrameHandlerMono):
         world.trace_meta[p] = (world.stage, n_tracked, float(is_kf), ts)
         return world._replace(trace_ptr=world.trace_ptr + 1), n_tracked, is_kf
 
+    def step(self, world: WorldState, img, ts: float,
+             T_prior_rel: Optional[SE3] = None
+             ) -> tuple[WorldState, int, bool]:
+        """One frame (uint8 [H, W]) through the stage machine, trace
+        appended. ``T_prior_rel`` (default: the constant-velocity model)
+        seeds the tracking step's alignment."""
+        pyr = build_pyramid(image_to_float(img, self.device), self.n_levels)
+        frame = make_empty_frame(pyr, self.max_fts,
+                                 T_cam_body=self.T_cam_body, timestamp=ts)
+        if T_prior_rel is None:
+            T_prior_rel = world.T_rel_prev
+        return self._run_state_machine(world, frame, ts, T_prior_rel)
+
+    def _motion_prior(self, timestamp: float) -> SE3:
+        """Constant-velocity translation with, given an IMU, the gyro
+        rotation prior integrated on the host (JAX pipeline.py:430-440)."""
+        if self.imu is None or self._last_ts is None:
+            return self.world.T_rel_prev
+        R = self.imu.relative_rotation_prior_np(
+            self._last_ts, timestamp, self._R_cam_body_np)
+        q = torch.from_numpy(matrix_to_quat_np(R))
+        if self.device.type == "cuda":
+            q = q.pin_memory().to(self.device, non_blocking=True)
+        return SE3(q.to(self.device), self.world.T_rel_prev.t)
+
     def add_image(self, img, timestamp: float) -> None:
         """Feed one image (uint8 [H, W], uploaded as uint8)."""
+        prior = self._motion_prior(timestamp)
         self.world, _, _ = self.step(self.world, img,
-                                     self._rel_ts(timestamp))
+                                     self._rel_ts(timestamp), prior)
+        self._last_ts = timestamp
 
     @property
     def stage(self) -> Stage:

@@ -111,6 +111,14 @@ def solve_psd_small(H: torch.Tensor, g: torch.Tensor, damping: float = 1e-8
     D = H.shape[-1]
     if D > 8:
         return torch.linalg.solve(H, g[..., None])[..., 0]
+    return cholesky_solve_small(cholesky_small(H, damping), g)
+
+
+def cholesky_small(H: torch.Tensor, damping: float = 1e-8) -> list:
+    """Lower Cholesky factor of ``H + damping·I`` as nested lists of
+    [...] tensors (the factorization half of :func:`solve_psd_small`, so a
+    solver whose H is fixed across iterations factors it once)."""
+    D = H.shape[-1]
     H = H + damping * torch.eye(D, dtype=H.dtype, device=H.device)
     L = [[None] * D for _ in range(D)]
     for i in range(D):
@@ -122,6 +130,12 @@ def solve_psd_small(H: torch.Tensor, g: torch.Tensor, damping: float = 1e-8
                 L[i][j] = torch.sqrt(torch.clamp(s, min=1e-20))
             else:
                 L[i][j] = s / L[j][j]
+    return L
+
+
+def cholesky_solve_small(L: list, g: torch.Tensor) -> torch.Tensor:
+    """x of L·Lᵀ·x = g for a factor from :func:`cholesky_small`."""
+    D = len(L)
     y = [None] * D
     for i in range(D):
         s = g[..., i]

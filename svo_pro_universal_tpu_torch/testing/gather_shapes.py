@@ -1,4 +1,5 @@
-"""The tile gathers at the shapes of the mono tracking step, and CUDA-event
+"""The tile gathers at the shapes of the mono tracking step and of the
+FivePoint bootstrap's KLT, and CUDA-event
 timers: the inputs and calls that ``gather_bench.py`` times and
 ``chip_smoke.py`` holds against the plain versions, so both make the same
 inputs from the same seed.
@@ -23,6 +24,11 @@ PATH_SHAPES = [
     ("gather_tiles", 768, 40, "depth filter, epipolar scan"),
     ("gather_tiles_ring", 384, 24, "reprojection, reference patches"),
     ("gather_tiles_ring", 768, 24, "depth filter, reference patches"),
+    # the FivePoint bootstrap's KLT (patch 8): 14×14 template tiles and
+    # 26×26 search tiles, at every level 0..4 (plain-load copy route: 14
+    # and 26 are no multiples of 4)
+    ("gather_tiles", 360, 14, "KLT reference border patches"),
+    ("gather_tiles", 360, 26, "KLT search tiles"),
 ]
 
 

@@ -9,7 +9,9 @@ without running off the texture, seen through a pinhole or through any
 camera model of the port; ``align_problem``, a sparse-alignment input
 built from two such views; ``rotation_gap`` to compare poses; and
 ``tile_case`` and ``tile_gather_mismatches``, which hold the tile
-gathers (origin arithmetic included) to their plain versions.
+gathers (origin arithmetic included) to their plain versions; and bench.py's
+mono-VIO input (``bench_sequence``: its sphere+plane scene along its
+``twist`` trajectory, ``degrade_sequence``, the 200 Hz IMU stream).
 """
 
 from __future__ import annotations
@@ -173,6 +175,169 @@ def align_problem(cam: proj.Camera, T_ref_body: np.ndarray,
         T_cam_body=SE3(matrix_to_quat(Tcb_t[:3, :3]).to(dev),
                        Tcb_t[:3, 3].to(dev)),
         cam=cam.to(dev))
+
+
+# ---------------------------------------------------------------------------
+# bench.py's mono-VIO scene: a textured sphere before a slanted plane, the
+# `twist` trajectory, photometric degradation and a 200 Hz IMU stream
+# ---------------------------------------------------------------------------
+
+BENCH_W, BENCH_H = 752, 480
+BENCH_INTRINSICS = (460.0, 460.0, 376.0, 240.0)
+SPHERE_CENTER = (0.0, 0.0, 2.8)
+SPHERE_RADIUS = 1.4
+BG_PLANE_N = (0.2, -0.1, 1.0)      # background plane n·x = BG_PLANE_D
+BG_PLANE_D = 4.5
+CAM_DT = 0.05                      # 20 Hz camera
+IMU_RATE = 200.0
+GRAVITY_W = np.array([0.0, 0.0, -9.81])
+
+
+def se3_exp_np(twist) -> np.ndarray:
+    """4×4 exp of a twist [v(3), w(3)] (translation first), in float64."""
+    tw = np.asarray(twist, np.float64)
+    v, w = tw[:3], tw[3:]
+    th = np.linalg.norm(w)
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    if th < 1e-10:
+        R, V = np.eye(3) + K, np.eye(3) + 0.5 * K
+    else:
+        R = (np.eye(3) + np.sin(th) / th * K
+             + (1 - np.cos(th)) / th ** 2 * K @ K)
+        V = (np.eye(3) + (1 - np.cos(th)) / th ** 2 * K
+             + (th - np.sin(th)) / th ** 3 * K @ K)
+    T = np.eye(4)
+    T[:3, :3] = R
+    T[:3, 3] = V @ v
+    return T
+
+
+def bench_twist(t: float) -> np.ndarray:
+    """bench.py's `twist` (bench.py:189-214): twist of T_cam_world at frame
+    time ``t`` (frames), a slow drift plus an excitation wobble of ±2 cm at
+    ~1.2 Hz during the first 2.5 s, faded out by 3.5 s."""
+    tt = min(t, 60.0)
+    ph = t * 0.11
+    ts = t * CAM_DT
+    env = (1.0 if ts < 2.5 else
+           0.5 * (1.0 + np.cos(np.pi * (ts - 2.5))) if ts < 3.5 else 0.0)
+    wob = env * np.array([0.018 * np.sin(7.5 * ts),
+                          0.015 * np.sin(9.1 * ts + 1.0),
+                          0.012 * np.sin(8.3 * ts + 2.1)])
+    return np.array([0.02 * tt * np.cos(ph * 0.15) + wob[0],
+                     0.01 * np.sin(ph * 0.9) + wob[1],
+                     0.003 * tt * 0.2 + wob[2],
+                     0.002 * np.sin(ph * 0.6), 0.0003 * tt,
+                     0.001 * tt], np.float32)
+
+
+def _sphere_texture(p: torch.Tensor) -> torch.Tensor:
+    x, y, z = p.unbind(-1)
+    smooth = (115.0 + 35.0 * torch.sin(4.0 * x) * torch.cos(5.0 * y)
+              + 25.0 * torch.sin(3.0 * (x + z)))
+    checker = (25.0 * torch.sign(torch.sin(14.0 * x + 0.7))
+               * torch.sign(torch.sin(14.0 * y + 0.3))
+               * torch.sign(torch.sin(11.0 * z + 0.5)))
+    return torch.clamp(smooth + checker, 0.0, 255.0)
+
+
+def render_sphere_scene(T_cam_world: np.ndarray, cam: proj.Camera,
+                        device=None) -> np.ndarray:
+    """float32 [H, W] view of bench.py's sphere + background-plane scene
+    (bench.py:53-85) from ``T_cam_world`` (4×4), rendered on ``device``:
+    the nearest positive sphere hit, else the plane."""
+    dev = torch.device("cpu" if device is None else device)
+    cam = cam.to(dev)
+    yy, xx = torch.meshgrid(torch.arange(cam.height, device=dev),
+                            torch.arange(cam.width, device=dev),
+                            indexing="ij")
+    uv = torch.stack([xx, yy], -1).reshape(-1, 2).to(torch.float32)
+    f = proj.backproject(cam, uv)
+    Twc = torch.as_tensor(np.linalg.inv(T_cam_world).astype(np.float32),
+                          device=dev)
+    d = f @ Twc[:3, :3].T
+    o = Twc[:3, 3]
+    oc = o - torch.tensor(SPHERE_CENTER, device=dev)
+    b = d @ oc
+    c = oc @ oc - SPHERE_RADIUS ** 2
+    disc = b * b - c
+    hit = disc > 0
+    ts = torch.where(hit, -b - torch.sqrt(torch.clamp(disc, min=0.0)), -1.0)
+    n = torch.tensor(BG_PLANE_N, device=dev)
+    denom = d @ n
+    tp = (BG_PLANE_D - o @ n) / torch.where(torch.abs(denom) > 1e-9, denom,
+                                            1e-9)
+    t = torch.where(hit & (ts > 0), ts, tp)
+    p = o[None] + t[:, None] * d
+    return _sphere_texture(p).reshape(cam.height, cam.width).cpu().numpy()
+
+
+def degrade_sequence(frames, seed=0, exposure_drift=0.25, vignette=0.35,
+                     blur_px=1.5, noise_sigma=2.5) -> list:
+    """Camera-realistic degradation of a rendered sequence (the port's copy
+    of svo_pro_universal_tpu/testing/synthetic.py:206): mean-reverting
+    exposure gain/offset walk, radial vignetting, a 3-tap motion blur along
+    a random per-frame shift, Gaussian sensor noise, uint8 quantization."""
+    rng = np.random.default_rng(seed)
+    h, w = np.asarray(frames[0]).shape
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    r2 = (((xx - w / 2) / (w / 2)) ** 2 + ((yy - h / 2) / (h / 2)) ** 2)
+    vig = 1.0 - vignette * r2 / 2.0
+    out = []
+    gain, offs = 1.0, 0.0
+    prev = None
+    for f in frames:
+        img = np.asarray(f, np.float32)
+        gain += rng.normal(0, 0.02) - 0.1 * (gain - 1.0)
+        offs += rng.normal(0, 1.0) - 0.1 * offs
+        gain = float(np.clip(gain, 1.0 - exposure_drift,
+                             1.0 + exposure_drift))
+        g = img * gain + offs
+        if prev is not None and blur_px > 0:
+            dy = rng.integers(-1, 2)
+            dx = rng.integers(-2, 3)
+            sh = np.roll(np.roll(g, dy, axis=0), dx, axis=1)
+            g = (2.0 * g + sh) / 3.0
+        prev = img
+        g = g * vig
+        g = g + rng.normal(0, noise_sigma, g.shape)
+        out.append(np.clip(g, 0, 255).astype(np.uint8))
+    return out
+
+
+def bench_imu_stream(twist_fn, n_frames: int) -> list:
+    """(t, gyro [3], acc [3]) at 200 Hz consistent with the trajectory
+    (body = camera), by finite differences of the poses (bench.py:105-126):
+    gyro from the rotation increment, specific force R_bwᵀ(a_w − g)."""
+    imu_dt = 1.0 / IMU_RATE
+    sub = int(IMU_RATE * CAM_DT)
+    n_imu = n_frames * sub
+    mats_wb = [np.linalg.inv(se3_exp_np(twist_fn(i / sub)))
+               for i in range(n_imu + 2)]
+    p_wb = np.stack([m[:3, 3] for m in mats_wb])
+    meas = []
+    for i in range(n_imu):
+        R0, R1 = mats_wb[i][:3, :3], mats_wb[i + 1][:3, :3]
+        dR = R0.T @ R1
+        w_vec = np.array([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0],
+                          dR[1, 0] - dR[0, 1]]) * 0.5 / imu_dt
+        a_w = (p_wb[i + 2] - 2 * p_wb[i + 1] + p_wb[i]) / imu_dt ** 2
+        meas.append((i * imu_dt, w_vec.astype(np.float32),
+                     (R0.T @ (a_w - GRAVITY_W)).astype(np.float32)))
+    return meas
+
+
+def bench_sequence(n_frames: int, degrade_seed: int = 7, device=None,
+                   twist_fn=bench_twist) -> tuple[list, list, list]:
+    """bench.py's mono-VIO input (bench.py:93-127, 216-217): the T_cam_world
+    [4×4] of each frame, the degraded uint8 frames (rendered on
+    ``device``), and the 200 Hz IMU stream."""
+    cam = proj.Camera.pinhole(*BENCH_INTRINSICS, BENCH_W, BENCH_H)
+    poses = [se3_exp_np(twist_fn(float(t))) for t in range(n_frames)]
+    frames = [render_sphere_scene(T, cam, device).astype(np.uint8)
+              for T in poses]
+    return (poses, degrade_sequence(frames, seed=degrade_seed),
+            bench_imu_stream(twist_fn, n_frames))
 
 
 def rotation_gap(qa, qb) -> float:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 _EPS = 1e-8
@@ -93,6 +94,35 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
         best.shape + (1, 4)))[..., 0, :]
     q = quat_normalize(q)
     return q * torch.where(q[..., 0:1] < 0, -1.0, 1.0)
+
+
+def matrix_to_quat_np(m) -> np.ndarray:
+    """Host (numpy) rotation matrix → float32 wxyz quaternion, for the
+    per-frame host paths (the gyro motion prior) that must not touch the
+    card."""
+    m = np.asarray(m, np.float64)
+    tr = m[0, 0] + m[1, 1] + m[2, 2]
+    cands = [tr, m[0, 0] - m[1, 1] - m[2, 2],
+             m[1, 1] - m[0, 0] - m[2, 2], m[2, 2] - m[0, 0] - m[1, 1]]
+    i = int(np.argmax(cands))
+    if i == 0:
+        q = np.array([1.0 + tr, m[2, 1] - m[1, 2], m[0, 2] - m[2, 0],
+                      m[1, 0] - m[0, 1]])
+    elif i == 1:
+        q = np.array([m[2, 1] - m[1, 2], 1.0 + m[0, 0] - m[1, 1] - m[2, 2],
+                      m[0, 1] + m[1, 0], m[0, 2] + m[2, 0]])
+    elif i == 2:
+        q = np.array([m[0, 2] - m[2, 0], m[0, 1] + m[1, 0],
+                      1.0 + m[1, 1] - m[0, 0] - m[2, 2],
+                      m[1, 2] + m[2, 1]])
+    else:
+        q = np.array([m[1, 0] - m[0, 1], m[0, 2] + m[2, 0],
+                      m[1, 2] + m[2, 1],
+                      1.0 + m[2, 2] - m[0, 0] - m[1, 1]])
+    q = q / np.linalg.norm(q)
+    if q[0] < 0:
+        q = -q
+    return q.astype(np.float32)
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:

@@ -81,6 +81,33 @@ def test_tile_gathers_match_plain_versions(width):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tile", [14, 26])
+def test_klt_gathers_match_plain_version(tile):
+    """The FivePoint KLT's tiles (14×14 templates, 26×26 search tiles; the
+    plain-load route) from a 5-level 752×480 pyramid, N = 360, every
+    feature at one level, for each level 0..4 (level 4 is 30×47), centres
+    over and past the level: equal to extract_tiles_plain, one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run on the card with `python -m "
+                    "pytest --noconftest tests/test_torch_gpu.py -m gpu`")
+    rng = np.random.default_rng(2)
+    pyr = torch.rand((5, 480, 752), device="cuda") * 255
+    assert not cuda_tiles.tma_route(pyr, tile, tile)
+    for level in range(5):
+        n = 360
+        lvl = torch.full((n,), level, dtype=torch.long, device="cuda")
+        cyx = torch.as_tensor(np.stack([
+            rng.uniform(-8, (480 >> level) + 8, n),
+            rng.uniform(-8, (752 >> level) + 8, n)], -1).astype(np.float32),
+            device="cuda")
+        before = cuda_tiles.GATHER_TILES.launches
+        got = cuda_tiles.extract_tiles(pyr, lvl, cyx, tile, tile)
+        assert cuda_tiles.GATHER_TILES.launches == before + 1
+        want = cuda_tiles.extract_tiles_plain(pyr, lvl, cyx, tile, tile)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), level
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["mono", "prior_alpha_beta", "two_cameras",
                                   "n768"])
 def test_align_level_matches_plain_version(case):

@@ -139,11 +139,14 @@ def test_frame_handler_defaults_to_the_card(monkeypatch):
 
 
 def test_unported_options_raise():
+    """FivePoint initialization is ported (it constructs and starts in
+    FIRST_FRAME); the other detectors still raise."""
     cam = Camera.pinhole(150.0, 150.0, 80.0, 60.0, 160, 120)
     cfg = port_config(slice_config())
     cfg.init.init_method = "FivePoint"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DevicePipelineMono(cfg, cam, device="cpu")
+    pipe = DevicePipelineMono(cfg, cam, device="cpu")
+    assert pipe.stage == Stage.FIRST_FRAME
+    assert pipe.world.init_px.shape == (cfg.capacity.max_fts, 2)
     cfg = port_config(slice_config())
     cfg.detector.detector_type = "shitomasi"
     with pytest.raises(NotImplementedError, match="later slice"):
