@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 Drives the port's main paths on the card and checks them end to end:
-``DevicePipelineMono`` (mono VO tracking, OneShot initialization) and
+``DevicePipelineMono`` (mono VO tracking, OneShot initialization),
 ``DevicePipelineVIO`` (FivePoint initialization, IMU, window backend: the
-configuration bench.py drives), both at EuRoC size, 752×480, with the
-capacities of bench.py:159-184. Phases, one JSON line each:
+configuration bench.py drives) and ``DevicePipelineSLAM`` (the same VIO plus
+loop closing, pose graph and global map: bench.py's second section), all at
+EuRoC size, 752×480, with the capacities of bench.py:159-184. Phases, one
+JSON line each:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA.
 2. build    every csrc/*.cu compiled with nvcc for sm_90a, in parallel.
@@ -40,21 +42,48 @@ capacities of bench.py:159-184. Phases, one JSON line each:
             must agree with the card's within 5 mm.
 6. vio      ``DevicePipelineVIO`` (FivePoint init, window backend, 200 Hz
             IMU) in bench.py's mono_vio_degraded_imagery configuration on
-            its degraded sphere scene (bench.py:159-222): 20 warm-up and
+            its degraded sphere scene (bench.py:159-222), with the backend's
+            opt-in ``zupt_require_rest`` (see ``vio_config``): 20 warm-up and
             120 timed frames; fps overall / steady (best of three chunks),
             median frame ms, per-stage and backend ms per call (CUDA
-            events), accuracy (Sim3/SE3 ATE, scale error) and peak memory.
-            Gates: TRACKING on ≥ 90% of the timed frames and within the
-            warm-up, backend ≥ 2 states with finite chi2 > 0, Sim3 ATE <
-            0.15 × path, gather_tiles launched in the bootstrap frames,
+            events), accuracy (Sim3/SE3 ATE, scale error), the share of
+            window LM iterations whose state step was voided, and peak
+            memory. Gates: TRACKING on ≥ 90% of the timed frames and within
+            the warm-up, backend ≥ 2 states with finite chi2 > 0, Sim3 ATE
+            < 0.15 × path, gather_tiles launched in the bootstrap frames,
             align_level once per level of every sparse alignment and
             fused_evaluate never.
+   determinism  the first 40 frames again in a second pipeline: the pose
+            trace must equal the first run's to the bit.
    vio_profile  7 frames holding a backend call, as the profile phase.
    vio_cpu  the same frames through the bootstrap + 2 on the CPU: the same
             stages and poses within 5 mm of a card run.
+7. slam     ``DevicePipelineSLAM`` in bench.py's SLAM configuration
+            (bench.py:291-350: the vio configuration, SlamOptions with 128
+            database keyframes and nodes, 384 global landmarks) on its
+            closed loop (64-frame laps, 160 frames, 16 warm-up, degrade
+            seed 11): fps (timed frames over their wall time), slam_stats,
+            Sim3 ATE, stage ms per call of the SLAM step, verification and
+            pose-graph optimization (CUDA events), launches, peak memory.
+            Gates (tests/test_device_pipeline_slam.py:96-123): TRACKING on
+            ≥ 90% of the timed frames, ≥ 20 global landmarks, backend ≥ 2
+            states with a finite chi2, Sim3 ATE < 0.15 × path, the gathers
+            launched and align_level once per level of every sparse
+            alignment, fused_evaluate never. Its "≥ 1 verified loop" is
+            recorded (``loop_gate_passed``), not held: the JAX package on
+            the CPU closes no loop on this scene either (JAX_SLAM_CPU).
+   slam_loop_parts  the run's first verification again on the card and on
+            the CPU (match and inlier counts equal, translation within
+            1e-3), and a loop closure of the run's final pose graph
+            (128-node capacity) on both: nodes within 1e-3, ms per call.
+   slam_profile  7 frames around the first verified loop, else the first
+            verification, in a second run: device busy ms, launches, idle
+            share, and the port's stream synchronizations per frame from
+            the profiler's own trace (no sync debug mode in the window).
 
 The ``kernels`` line's ``launches`` are the vio run's, counted from 0 just
-before it (``launches_mono_slice``: the slice run's).
+before it (``launches_mono_slice``: the slice run's; ``launches_slam``: the
+slam run's).
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Needs one CUDA card; imports nothing of JAX.
@@ -71,6 +100,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from svo_pro_universal_tpu_torch.backend import loop_closing as lc_mod
+from svo_pro_universal_tpu_torch.backend import pgo as pgo_mod
 from svo_pro_universal_tpu_torch.cameras.projections import (
     Camera, DistortionModel, ProjectionModel)
 from svo_pro_universal_tpu_torch.cameras.rig import ImuParams
@@ -79,6 +110,8 @@ from svo_pro_universal_tpu_torch.evaluation import ate_rmse
 from svo_pro_universal_tpu_torch.frontend.frame_handler import Stage
 from svo_pro_universal_tpu_torch.frontend.imu_handler import ImuHandler
 from svo_pro_universal_tpu_torch.frontend.pipeline import DevicePipelineMono
+from svo_pro_universal_tpu_torch.frontend.pipeline_slam import (
+    DevicePipelineSLAM, SlamOptions)
 from svo_pro_universal_tpu_torch.frontend.pipeline_vio import (
     DevicePipelineVIO)
 from svo_pro_universal_tpu_torch.ops import _cuda, cuda_align, cuda_tiles
@@ -86,7 +119,7 @@ from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
 from svo_pro_universal_tpu_torch.ops import tiles
 from svo_pro_universal_tpu_torch.testing import gather_shapes as gs
 from svo_pro_universal_tpu_torch.testing import synthetic as syn
-from svo_pro_universal_tpu_torch.utils.transform import se3_exp
+from svo_pro_universal_tpu_torch.utils.transform import SE3, se3_exp
 
 W, H = 752, 480
 INTR = (460.0, 460.0, 376.0, 240.0)
@@ -501,18 +534,31 @@ def profile_frames(frames: list) -> dict:
 
 def profile_run(run, run_sync, n: int) -> dict:
     """torch.profiler over ``run()`` (n frames): device busy ms, kernel
-    launches, the port kernels' launches and device ms; then the host syncs
-    of ``run_sync()`` (another n frames) in PyTorch's sync debug mode."""
+    launches, the port kernels' launches and device ms, the stream and
+    device synchronizations the profiler records; then the host syncs of
+    ``run_sync()`` (another n frames) in PyTorch's sync debug mode (none
+    with ``run_sync`` None)."""
     import warnings
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if run_sync is not None:
+            del caught[:]
+            torch.cuda.set_sync_debug_mode(1)
+            try:
+                run_sync()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    syncs = (sum("synchroniz" in str(w.message) for w in caught)
+             if run_sync is not None else None)
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -537,14 +583,6 @@ def profile_run(run, run_sync, n: int) -> dict:
                 port[fn] = (c + e.count, t + e.self_device_time_total)
     port = {k: {"launches_per_frame": c / n, "device_ms_per_launch":
                 t / 1e3 / c} for k, (c, t) in port.items()}
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode(1)
-        try:
-            run_sync()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
     return {"phase": "profile", "frames": n,
             "device_busy_ms_per_frame": busy_ms / n,
             "wall_ms_per_frame_profiled": wall * 1e3 / n,
@@ -552,7 +590,13 @@ def profile_run(run, run_sync, n: int) -> dict:
             "kernel_launches_per_frame": sum(e.count for e in kernels) / n,
             "host_sync_wait_ms_per_frame": sync_ms / n,
             "host_launch_api_ms_per_frame": launch_ms / n,
-            "host_syncs_per_frame": syncs / n, "port_kernels": port}
+            "host_syncs_per_frame": None if syncs is None else syncs / n,
+            # the port's reads (a device-to-host copy waits on its stream;
+            # the harness's own per-frame synchronize is a device one)
+            "stream_syncs_per_frame": sum(
+                e.count for e in events
+                if e.key == "cudaStreamSynchronize") / n,
+            "port_kernels": port}
 
 
 # ---------------------------------------------------------------------------
@@ -574,7 +618,8 @@ JAX_REFERENCE = {"ate_m": 0.009, "ate_se3_m": 0.0481, "scale_error": 0.1152,
 
 def vio_config(cell_size: int = 30) -> Config:
     """bench.py:159-184, the mono_vio_degraded_imagery configuration
-    (FivePoint initialization, the Config default)."""
+    (FivePoint initialization, the Config default), with the backend's
+    ``zupt_require_rest`` on."""
     cfg = Config()
     cfg.capacity.max_fts = 360
     cfg.capacity.max_kfs = 8
@@ -596,20 +641,30 @@ def vio_config(cell_size: int = 30) -> Config:
     cfg.reprojector.max_n_features_per_frame = 200
     cfg.backend.num_keyframes = 5
     cfg.backend.max_iterations = 3
+    # the port's opt-in fix of the reference's zero-velocity prior: with
+    # the window solve stepping its states, bench.py's noise-free IMU reads
+    # as stationary and the prior drags the moving window (the JAX package
+    # with the same float64 solve: Sim3 ATE 0.4475 m on this scene,
+    # reference_cpu.py)
+    cfg.backend.zupt_require_rest = True
     return cfg
 
 
 class VioRun:
-    """DevicePipelineVIO on one device, fed like bench.py's Feeder
-    (bench.py:139-148): the IMU up to each frame's time, then the frame."""
+    """DevicePipelineVIO (DevicePipelineSLAM given ``slam_opts``) on one
+    device, fed like bench.py's Feeder (bench.py:139-148): the IMU up to
+    each frame's time, then the frame."""
 
     def __init__(self, cam: Camera, cfg: Config, imu_meas: list, device,
-                 n_frames: int):
+                 n_frames: int, slam_opts: SlamOptions | None = None):
         self.imu = ImuHandler(ImuParams())
-        self.pipe = DevicePipelineVIO(cfg, cam, imu_handler=self.imu,
-                                      imu_params=ImuParams(),
-                                      trace_capacity=n_frames + 1,
-                                      device=device)
+        kw = dict(imu_handler=self.imu, imu_params=ImuParams(),
+                  trace_capacity=n_frames + 1, device=device)
+        if slam_opts is None:
+            self.pipe = DevicePipelineVIO(cfg, cam, **kw)
+        else:
+            self.pipe = DevicePipelineSLAM(cfg, cam, slam_opts=slam_opts,
+                                           **kw)
         self.imu_meas = imu_meas
         self.i_imu = 0
         self.device = torch.device(device)
@@ -641,6 +696,24 @@ def count_launches_in(obj, name: str, kernel: _cuda.Kernel,
         log.append(kernel.launches - before)
         return out
     setattr(obj, name, counted)
+
+
+def determinism_check(smi: str, run: VioRun, first: np.ndarray,
+                      frames: list) -> None:
+    """A second run of the first ``len(first)`` frames in this process must
+    give the same pose trace to the bit (the backend's float sums are in an
+    order fixed by their inputs: ``utils.indexing.segment_sum``)."""
+    run.feed(frames, 0, first.shape[0])
+    again = run.pipe.drain()[0]
+    line = {"phase": "determinism", "card": smi, "frames": first.shape[0],
+            "max_pos_diff_m": float(np.abs(again[:, :3, 3]
+                                           - first[:, :3, 3]).max()),
+            "max_abs_diff": float(np.abs(again - first).max()),
+            "bit_identical": bool(np.array_equal(again, first))}
+    emit(line)
+    if not line["bit_identical"]:
+        fail(f"vio: two runs of the first {first.shape[0]} frames differ: "
+             f"{line}")
 
 
 def vio_phase(smi: str) -> dict:
@@ -757,6 +830,8 @@ def vio_phase(smi: str) -> dict:
     prof_run.feed(frames, 0, n_cpu)
     card_mats, card_meta = prof_run.pipe.drain()
     prof_run.feed(frames, n_cpu, VIO_PROFILE_AT)
+    determinism_check(smi, VioRun(cam, cfg, imu_meas, "cuda", VIO_FRAMES),
+                      prof_run.pipe.drain()[0], frames)
     a, n = VIO_PROFILE_AT, VIO_PROFILE_FRAMES
     k0 = prof_run.pipe.world.last_kf_ts
     prof = profile_run(lambda: prof_run.feed(frames, a, a + n),
@@ -781,6 +856,237 @@ def vio_phase(smi: str) -> dict:
         fail(f"vio: card and CPU disagree: gap {gap.max()} m, stages "
              f"{cmeta[:, 0].tolist()} vs {card_meta[:, 0].tolist()}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: mono SLAM (loop closing, pose graph, global map) on bench.py's loop
+# ---------------------------------------------------------------------------
+
+SLAM_WARMUP = 16                   # bench.py:311
+SLAM_PROFILE_FRAMES = 7
+SLAM_STAGES = VIO_STAGES + ("_run_slam_kf", "_snapshot", "_close_loop",
+                            "_gm_refine", "_gm_feedback")
+# the JAX package on the CPU, same scene and configuration, float32 as it
+# ships (reference_cpu.py slam); counts only
+JAX_SLAM_CPU = {"n_tracking": "144/144", "n_keyframes": 8,
+                "n_loops_closed": 0, "n_cand": 2, "nn_max": 25, "inl_max": 0,
+                "gm_landmarks": 217}
+LOOP_TOL = 1e-3          # m and rad: card vs CPU, verification and graph
+# JAX on a TPU, same scene and gates (BENCH_r05.json "slam"); accuracy and
+# counts only
+JAX_SLAM_REFERENCE = {"n_tracking": "144/144", "n_keyframes": 25,
+                      "n_loops_closed": 2, "last_loop_to": 16,
+                      "gm_landmarks": 384, "lc_best_sim": 0.991,
+                      "ate_m": 0.0745, "traj_len_m": 4.22}
+
+
+def slam_options() -> SlamOptions:
+    """bench.py:314-316."""
+    return SlamOptions(max_db_keyframes=128, max_nodes=128, gm_landmarks=384,
+                       min_temporal_gap=6, min_similarity=0.75, min_inliers=15)
+
+
+def slam_phase(smi: str) -> dict:
+    """bench.py's SLAM section (bench.py:291-350) on the card: the vio
+    phase's configuration on the closed loop (160 frames, 16 warm-up,
+    degrade seed 11); fps by bench.py's definition (timed frames over their
+    wall time), slam_stats, Sim3 ATE, stage ms (CUDA events), launches; the
+    gates; then a 7-frame profile around the first verified loop. Returns
+    the launch counts of the run."""
+    cam = Camera.pinhole(*syn.BENCH_INTRINSICS, syn.BENCH_W, syn.BENCH_H)
+    n_frames = syn.LOOP_FRAMES
+    t0 = time.perf_counter()
+    poses, frames, imu_meas = syn.bench_sequence(
+        n_frames, syn.LOOP_DEGRADE_SEED, "cuda", twist_fn=syn.loop_twist)
+    data_s = time.perf_counter() - t0
+    cfg = vio_config()
+    so = slam_options()
+    run = VioRun(cam, cfg, imu_meas, "cuda", n_frames, slam_opts=so)
+    pipe = run.pipe
+    events: list = []
+    time_methods(pipe, SLAM_STAGES, events)
+    time_methods(pipe.backend, BACKEND_PROGRAMS, events)
+    time_methods(pgo_mod, ("optimize",), events)
+    time_methods(lc_mod, ("verify_candidate",), events)
+    wall: list = []
+    loop_frames: list = []
+    cand_frames: list = []
+    first_cand: list = []
+    close_loop, verify = pipe._close_loop, lc_mod.verify_candidate
+
+    def logged_loop(w, *a, **k):
+        loop_frames.append(len(wall))
+        return close_loop(w, *a, **k)
+
+    def logged_verify(cur, old, *a, **k):
+        cand_frames.append(len(wall))
+        if not first_cand:
+            first_cand.append((cur, old, a, k))
+        return verify(cur, old, *a, **k)
+    pipe._close_loop = logged_loop
+    lc_mod.verify_candidate = logged_verify
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_counts()
+    run.feed(frames, 0, SLAM_WARMUP, wall)
+    run.feed(frames, SLAM_WARMUP, n_frames, wall)
+    lc_mod.verify_candidate = verify
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    torch.cuda.synchronize()
+    mats, meta = pipe.drain()
+    stage_ms: dict = {}
+    for nm, s, e in events:
+        c, t = stage_ms.get(nm, (0, 0.0))
+        stage_ms[nm] = (c + 1, t + s.elapsed_time(e))
+    stages = meta[:, 0].astype(int)
+    n_timed = n_frames - SLAM_WARMUP
+    n_tracking = int((stages[SLAM_WARMUP:] == Stage.TRACKING.value).sum())
+    tracking = stages == Stage.TRACKING.value
+    first_track = int(np.argmax(tracking)) if tracking.any() else -1
+    timed_wall = np.asarray(wall[SLAM_WARMUP:])
+    w = pipe.world
+    stats = pipe.slam_stats()
+    line = {
+        "phase": "slam", "card": smi, "config": "mono_vio_degraded_imagery "
+        "+ SLAM (bench.py:291-350)", "slam_options": so._asdict(),
+        "resolution": [syn.BENCH_W, syn.BENCH_H], "frames": n_frames,
+        "warmup": SLAM_WARMUP, "data_s": data_s,
+        "fps": float(n_timed / timed_wall.sum()),
+        "frame_ms_median": float(np.median(timed_wall) * 1e3),
+        "frame_ms_max": float(timed_wall.max() * 1e3),
+        "n_tracking": n_tracking, "n_timed": n_timed,
+        "first_tracking_frame": first_track, **stats,
+        "loop_frames": loop_frames, "candidate_frames": cand_frames,
+        "backend_keyframes": w.backend_k,
+        "backend_chi2": float(w.backend_chi2),
+        "backend_lm_iterations": pipe.backend.lm_iterations,
+        "backend_lm_voided_share": (int(pipe.backend.lm_voided)
+                                    / max(pipe.backend.lm_iterations, 1)),
+        "stage_ms_per_call": {k.lstrip("_"): t / c
+                              for k, (c, t) in stage_ms.items()},
+        "stage_calls": {k.lstrip("_"): c for k, (c, _) in stage_ms.items()},
+        "launches": counts,
+        "launches_per_frame": {k: v / n_frames for k, v in counts.items()},
+        "peak_mem_MB": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "jax_reference_tpu": JAX_SLAM_REFERENCE,
+        "jax_reference_cpu": JAX_SLAM_CPU}
+    if first_track >= 0:
+        gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses[first_track:]])
+        ate, _ = ate_rmse(mats[first_track:, :3, 3], gt, align="sim3")
+        line |= {"ate_m": ate, "traj_len_m": float(np.linalg.norm(
+            np.diff(gt, axis=0), axis=-1).sum())}
+    # the loop gate of tests/test_device_pipeline_slam.py, recorded: on
+    # this scene the JAX package on the CPU closes no loop either
+    # (JAX_SLAM_CPU), so it is no check of the port (PERF.md §6)
+    line["loop_gate_passed"] = stats["n_loops_closed"] >= 1
+    emit(line)
+
+    # ---- gates (tests/test_device_pipeline_slam.py:96-123) -------------
+    if n_tracking < 0.9 * n_timed:
+        fail(f"slam: TRACKING on {n_tracking}/{n_timed} timed frames")
+    if stats["gm_landmarks"] < 20:
+        fail(f"slam: {stats['gm_landmarks']} global landmarks")
+    if not (w.backend_k >= 2 and np.isfinite(line["backend_chi2"])):
+        fail(f"slam: backend {w.backend_k} states, chi2 "
+             f"{line['backend_chi2']}")
+    if not (np.isfinite(mats).all()
+            and line["ate_m"] < 0.15 * line["traj_len_m"]):
+        fail(f"slam: Sim3 ATE {line.get('ate_m')} m over "
+             f"{line.get('traj_len_m')} m")
+    ia = cfg.img_align
+    n_align = stage_ms.get("_stage_align", (0, 0.0))[0]
+    if (min(counts["gather_tiles"], counts["gather_tiles_ring"]) <= 0
+            or n_align == 0 or counts["align_level"]
+            != (ia.max_level - ia.min_level + 1) * n_align
+            or counts["fused_evaluate"] != 0):
+        fail(f"slam: launches {counts} for {n_align} sparse alignments")
+
+    slam_loop_parts(smi, pipe, first_cand)
+
+    # ---- profile: 7 frames around the first verified loop, else the first
+    # verification (a second run of the same frames; the card's runs are
+    # deterministic)
+    at = (loop_frames or cand_frames or [n_frames - SLAM_PROFILE_FRAMES])[0]
+    n = SLAM_PROFILE_FRAMES
+    a = min(max(at - n // 2, SLAM_WARMUP), n_frames - n)
+    prof_run = VioRun(cam, cfg, imu_meas, "cuda", n_frames, slam_opts=so)
+    prof_run.feed(frames, 0, a)
+    w0 = prof_run.pipe.world
+    loops0, diag0 = w0.n_loops, int(w0.lc_diag[0])
+    prof = profile_run(lambda: prof_run.feed(frames, a, a + n), None, n)
+    w1 = prof_run.pipe.world
+    prof |= {"phase": "slam_profile", "card": smi, "frames": [a, a + n],
+             "loops_in_window": w1.n_loops - loops0,
+             "verifications_in_window": int(w1.lc_diag[0]) - diag0}
+    emit(prof)
+    return counts
+
+
+def _to(x, device):
+    """A NamedTuple of tensors (and host values) on ``device``."""
+    return type(x)(*(t.to(device) if torch.is_tensor(t) else t for t in x))
+
+
+def slam_loop_parts(smi: str, pipe, first_cand: list) -> None:
+    """The loop branch's parts on the card against the same calls on the
+    CPU: the run's first verification on its own inputs (the match counts
+    equal; its inliers and pose are not held: with few inliers the robust
+    GN follows wrong matches, where rounding moves it), the current keyframe
+    verified against its own snapshot (verified on both, counts equal,
+    translation within LOOP_TOL), and a loop closure of the run's final
+    pose graph (the newest node to the oldest, at their relative pose
+    moved by 2 cm and 0.01 rad): ``pgo.optimize`` at bench.py's 128 nodes,
+    every node within LOOP_TOL of the CPU's, and its ms per call (CUDA
+    events)."""
+    so = pipe.slam
+    out = {"phase": "slam_loop_parts", "card": smi}
+    if first_cand:
+        cur, old, a, k = first_cand[0]
+        a_cpu = [x.cpu() if torch.is_tensor(x) else x for x in a]
+        for name, (c, o) in (("first", (cur, old)), ("self", (cur, cur))):
+            vg = lc_mod.verify_candidate(c, o, *a, **k)
+            vc = lc_mod.verify_candidate(_to(c, "cpu"), _to(o, "cpu"),
+                                         *a_cpu, **k)
+            cg = [int(x) for x in (vg.verified, vg.n_nn, vg.n_matches,
+                                   vg.n_inliers)]
+            cc = [int(x) for x in (vc.verified, vc.n_nn, vc.n_matches,
+                                   vc.n_inliers)]
+            gap = float(torch.linalg.norm(vg.T_cur_old.t.cpu()
+                                          - vc.T_cur_old.t))
+            out |= {f"verify_{name}_card": cg, f"verify_{name}_cpu": cc,
+                    f"verify_{name}_t_gap": gap}
+            # the first: the match counts (the inliers of a GN on wrong
+            # matches can differ by rounding); the self check: all
+            held = cg[1:3] == cc[1:3] if name == "first" else (
+                cg == cc and cg[0] == 1 and gap <= LOOP_TOL)
+            if not held:
+                fail(f"slam: {name} verification card {cg} vs CPU {cc}, "
+                     f"translation gap {gap}")
+    w = pipe.world
+    n = min(w.pgo_n, so.max_nodes)
+    g = w.pgo
+    T_new, T_old = SE3(g.q[n - 1], g.t[n - 1]), SE3(g.q[0], g.t[0])
+    T_loop = T_new.inverse().compose(T_old).compose(se3_exp(torch.tensor(
+        [0.02, -0.02, 0.02, 0.01, -0.01, 0.01], device=g.q.device)))
+    g = pgo_mod.add_constraint(g, w.pgo_c, n - 1, 0, T_loop, so.loop_weight,
+                               so.loop_weight)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    g_card, chi2 = pgo_mod.optimize(g, max_iter=so.pgo_iters)
+    e1.record()
+    torch.cuda.synchronize()
+    g_cpu, chi2_c = pgo_mod.optimize(_to(g, "cpu"), max_iter=so.pgo_iters)
+    gap_t = float((g_card.t.cpu() - g_cpu.t)[:n].abs().max())
+    gap_q = float((g_card.q.cpu() - g_cpu.q)[:n].abs().max())
+    moved = float((g_card.t - g.t)[:n].abs().max())
+    out |= {"pgo_nodes": n, "pgo_constraints": w.pgo_c + 1,
+            "pgo_ms": e0.elapsed_time(e1), "pgo_chi2_card": float(chi2),
+            "pgo_chi2_cpu": float(chi2_c), "pgo_node_gap_m": gap_t,
+            "pgo_quat_gap": gap_q, "pgo_max_node_move_m": moved}
+    emit(out)
+    if not (gap_t <= LOOP_TOL and gap_q <= LOOP_TOL and moved > 1e-3):
+        fail(f"slam: pose graph card vs CPU {gap_t} m, {gap_q}; "
+             f"moved {moved} m")
 
 
 def main() -> None:
@@ -879,6 +1185,7 @@ def main() -> None:
         fail(f"card and CPU runs disagree: position gap {gap.max()} m")
 
     vio_counts = vio_phase(smi)
+    slam_counts = slam_phase(smi)
 
     kernels = []
     for k in _cuda.KERNELS:
@@ -888,6 +1195,7 @@ def main() -> None:
             source=f"svo_pro_universal_tpu_torch/csrc/{k.source}",
             replaces=k.replaces, launches=vio_counts[k.name],
             launches_mono_slice=counts[k.name],
+            launches_slam=slam_counts[k.name],
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"])

@@ -37,7 +37,7 @@ from svo_pro_universal_tpu_torch.frontend.frame_handler import resolve_device
 from svo_pro_universal_tpu_torch.frontend.imu_handler import ImuWindow
 from svo_pro_universal_tpu_torch.frontend.map import insert_keyframe
 from svo_pro_universal_tpu_torch.utils.indexing import (
-    argsort_stable, set_drop, topk_stable)
+    argsort_stable, segment_sum, set_drop, topk_stable)
 from svo_pro_universal_tpu_torch.utils.robust import masked_median
 from svo_pro_universal_tpu_torch.utils.transform import SE3, quat_rotate
 
@@ -126,6 +126,7 @@ class DeviceBackend:
         self.zupt_gyro_thresh = getattr(bc, "zupt_gyro_thresh", 0.015)
         self.zupt_acc_thresh = getattr(bc, "zupt_acc_thresh", 0.12)
         self.zupt_sigma_v = getattr(bc, "zupt_sigma_v", 0.02)
+        self.zupt_require_rest = getattr(bc, "zupt_require_rest", False)
         self.scale_correction = getattr(bc, "scale_correction", True)
         self.max_scale_step = getattr(bc, "max_scale_step", 1.15)
         self.min_scale_support = getattr(bc, "min_scale_support", 12)
@@ -207,6 +208,13 @@ class DeviceBackend:
                     (imu_win.acc - a_mean) ** 2 * m, 0)) / nm)
                 stationary = ((nm >= 10) & (g_dev < self.zupt_gyro_thresh)
                               & (a_dev < self.zupt_acc_thresh))
+                if self.zupt_require_rest:
+                    # the frontend's velocity v0 at rest too (within 3 σ of
+                    # the prior): the IMU alone cannot tell rest from
+                    # constant velocity (opt-in; ROADMAP, deliberate
+                    # divergences)
+                    stationary = stationary & (torch.linalg.norm(v0)
+                                               < 3.0 * self.zupt_sigma_v)
                 zupt_k = torch.where(stationary,
                                      1.0 / self.zupt_sigma_v ** 2, 0.0)
             w = w._replace(zupt=_put(w.zupt, k, zupt_k))
@@ -455,7 +463,7 @@ class DeviceBackend:
         c_opt = T_new.inverse().t              # optimized camera center
         c_old = frame.T_cam_world.inverse().t  # pre-correction center
 
-        n_obs = wba._segment_sum(
+        n_obs = segment_sum(
             w.obs_valid.long(),
             torch.where(w.obs_valid, torch.clamp(w.obs_lm, 0, L - 1), L), L)
         old_pos = pool.pos[torch.clamp(st.slot_lid, 0, P - 1)]

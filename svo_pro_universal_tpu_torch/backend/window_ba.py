@@ -14,11 +14,13 @@ The whole window is one fixed-shape NamedTuple of tensors:
 - marginalization prior: dense (H0, b0) on the stacked state vector at a
   stored linearization point (reference marginalization_error.hpp:325)
 
-One LM iteration: batched residuals/Jacobians → segment sums (``index_add``)
-→ Schur complement S = Hpp − U·Hll⁻¹·Uᵀ → dense [S·15] solve → landmark
-back-substitution. Inverses and solves use the ``_ex`` forms, which do not
-read LAPACK/cuSOLVER's info back to the host; ``eigh`` of the marginal has
-no such form and synchronizes once per marginalization. The mesh-sharded
+One LM iteration: batched residuals/Jacobians → segment sums (in an order
+fixed by the inputs: ``utils.indexing.segment_sum``) → Schur complement
+S = Hpp − U·Hll⁻¹·Uᵀ → dense [S·15] solve → landmark back-substitution; the
+solve in float64 (the float32 system is assembled as in JAX). Inverses and
+solves use the ``_ex`` forms, which do not read LAPACK/cuSOLVER's info back
+to the host; ``eigh`` of the marginal has no such form and synchronizes
+once per marginalization. The mesh-sharded
 variants of the JAX package (``axis_name``, ``lm_offset``) belong to the
 multi-device slice and are not here.
 """
@@ -32,7 +34,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from svo_pro_universal_tpu_torch.backend import imu_factor as imu_mod
-from svo_pro_universal_tpu_torch.utils.indexing import set_drop
+from svo_pro_universal_tpu_torch.utils.indexing import segment_sum, set_drop
 from svo_pro_universal_tpu_torch.utils.transform import (
     SE3, quat_conjugate, quat_multiply, quat_normalize, quat_to_matrix, skew,
     so3_exp, so3_log)
@@ -58,6 +60,11 @@ class BAOptions(NamedTuple):
     vi_align_min_factors: int = 2
     vi_align_max_residual: float = 0.5   # mean-square row residual gate
     vi_align_max_sigma: float = 0.03     # relative α precision required
+    # void the whole LM state step while a landmark has fewer than two
+    # window views. JAX's float32 solve voids it where float32 rounding
+    # makes such a block's inverse non-finite; the tests that hold the port
+    # to JAX's float32 runs set this to reproduce those voids
+    void_on_single_view: bool = False
 
 
 class Window(NamedTuple):
@@ -178,14 +185,6 @@ def local_coords(w: Window) -> torch.Tensor:
     return d.reshape(-1)
 
 
-def _segment_sum(data: torch.Tensor, seg: torch.Tensor, n: int
-                 ) -> torch.Tensor:
-    """``jax.ops.segment_sum(data, seg, n + 1)[:n]`` (segment n drops)."""
-    out = torch.zeros((n + 1,) + tuple(data.shape[1:]), dtype=data.dtype,
-                      device=data.device)
-    return out.index_add_(0, seg, data)[:n]
-
-
 # ---------------------------------------------------------------------------
 # system assembly
 # ---------------------------------------------------------------------------
@@ -297,14 +296,14 @@ def _assemble_reproj(w: Window, T_cam_body: SE3, focal, opts: BAOptions):
     bs_o = -torch.einsum("nri,nr,n->ni", J_s, e, wgt)       # [No,15]
     bl_o = -torch.einsum("nri,nr,n->ni", J_l, e, wgt)       # [No,3]
 
-    Hpp = torch.block_diag(*_segment_sum(Hss, s_seg, S).unbind(0))
-    bp = _segment_sum(bs_o, s_seg, S).reshape(D)
+    Hpp = torch.block_diag(*segment_sum(Hss, s_seg, S).unbind(0))
+    bp = segment_sum(bs_o, s_seg, S).reshape(D)
     # landmark-state coupling: U[l] is [S·15, 3] with the [15,3] block of
     # state s at rows s·15..
     key = torch.where(rvalid, l_idx * S + s_idx, L * S)
-    U = _segment_sum(Hsl, key, L * S).reshape(L, S * DOF, 3)
-    Hll = _segment_sum(Hll_o, l_seg, L)
-    bl = _segment_sum(bl_o, l_seg, L)
+    U = segment_sum(Hsl, key, L * S).reshape(L, S * DOF, 3)
+    Hll = segment_sum(Hll_o, l_seg, L)
+    bl = segment_sum(bl_o, l_seg, L)
     chi2 = torch.sum(torch.sum(e * e, -1) * wgt)
     return Hpp, bp, U, Hll, bl, chi2
 
@@ -403,23 +402,29 @@ def single_view_landmarks(w: Window, T_cam_body: SE3, focal,
     """[L] valid landmarks with fewer than two valid window views."""
     valid = _reproj_terms(w, T_cam_body, focal, opts)[4]
     lm = torch.clamp(w.obs_lm, 0, w.L - 1)
-    views = _segment_sum(valid.long(), torch.where(valid, lm, w.L), w.L)
+    views = segment_sum(valid.long(), torch.where(valid, lm, w.L), w.L)
     return w.lm_valid & (views < 2)
 
 
 def solve_schur(Hpp, bp, U, Hll, bl, mu, lm_valid, single_view=None):
-    """Schur complement over the landmark blocks + dense state solve.
+    """Schur complement over the landmark blocks + dense state solve, in
+    float64 from the float32 system; returns float32 (dx_p, dl).
 
-    ``single_view`` [L] marks valid landmarks seen from fewer than two
-    window states: their blocks are rank 2 (+ the tiny damping). When any
+    Each damped block ``Hll + (1e-6 + mu)·I`` (the 1e-6 is added by
+    :func:`build_system`) is inverted, as JAX's ``solve_schur`` does, and
+    only non-finite entries of the steps are zeroed (JAX
+    window_ba.py:400-423). In float32 that reduction cancels (cond ~1e7
+    with the marginal prior): two float32 implementations disagree by more
+    than the step. ``single_view`` [L] (``BAOptions.void_on_single_view``)
+    marks valid landmarks seen from fewer than two window states: when any
     is set the whole state step is voided and those landmarks take no
-    update; the others still take theirs. This is STRICTER than the JAX
-    package, which voids only when its float32 inverse of such a block
-    comes out non-finite (some of them on the CPU; LAPACK's inverse is
-    finite noise that wrecked the pose fed back): here every once-seen
-    landmark voids the step (ROADMAP Queue 3; ``optimize`` counts the
-    voided iterations)."""
-    eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
+    update; the others still take theirs. Returns (dx_p, dl, voided): the
+    last is True when the state step was voided or had a non-finite
+    entry zeroed."""
+    f64 = torch.float64
+    Hpp, bp, U, Hll, bl = (x.to(f64) for x in (Hpp, bp, U, Hll, bl))
+    mu = torch.as_tensor(mu, dtype=f64, device=Hll.device)
+    eye3 = torch.eye(3, dtype=f64, device=Hll.device)
     Hll_inv = torch.linalg.inv_ex(Hll + mu * eye3[None])[0]
     Hll_inv = Hll_inv * lm_valid[:, None, None]
     void = torch.zeros((), dtype=torch.bool, device=Hll.device)
@@ -433,11 +438,13 @@ def solve_schur(Hpp, bp, U, Hll, bl, mu, lm_valid, single_view=None):
     S_d = S_mat + mu * torch.diag(torch.clamp(torch.diagonal(S_mat),
                                               min=1.0))
     dx_p = torch.linalg.solve_ex(S_d, b_schur[:, None])[0][:, 0]
-    dx_p = torch.where(torch.isfinite(dx_p) & ~void, dx_p, 0.0)
+    finite = torch.isfinite(dx_p)
+    dx_p = torch.where(finite & ~void, dx_p, 0.0)
     dl = torch.einsum("lab,lb->la", Hll_inv,
                       bl - torch.einsum("lia,i->la", U, dx_p))
     dl = torch.where(torch.isfinite(dl), dl, 0.0)
-    return dx_p, dl
+    return (dx_p.to(torch.float32), dl.to(torch.float32),
+            void | ~torch.all(finite))
 
 
 def vi_alignment(w: Window, opts: BAOptions):
@@ -541,8 +548,8 @@ def optimize(w: Window, T_cam_body: SE3, focal,
     """LM iterations with keep-best (reference: 3 iterations a frame,
     ceres_backend_interface.hpp:29). Every accept/reject and damping
     update is selected on the device. Returns (window, cost, the number of
-    iterations whose state step was voided by a once-seen landmark; see
-    :func:`solve_schur`)."""
+    iterations whose state step :func:`solve_schur` voided or zeroed in
+    part)."""
     if opts.vi_alignment:
         w = maybe_vi_align(w, opts)
     mu = torch.full((), opts.mu_init, dtype=w.q.dtype, device=w.q.device)
@@ -550,9 +557,11 @@ def optimize(w: Window, T_cam_body: SE3, focal,
     n_void = torch.zeros((), dtype=torch.long, device=w.q.device)
     for _ in range(opts.max_iter):
         Hpp, bp, U, Hll, bl, _ = build_system(w, T_cam_body, focal, opts)
-        single = single_view_landmarks(w, T_cam_body, focal, opts)
-        n_void = n_void + torch.any(single).long()
-        dx_p, dl = solve_schur(Hpp, bp, U, Hll, bl, mu, w.lm_valid, single)
+        single = (single_view_landmarks(w, T_cam_body, focal, opts)
+                  if opts.void_on_single_view else None)
+        dx_p, dl, void = solve_schur(Hpp, bp, U, Hll, bl, mu, w.lm_valid,
+                                     single)
+        n_void = n_void + void.long()
         cand = retract_states(w, dx_p)
         cand = cand._replace(lm_pos=w.lm_pos + dl * w.lm_valid[:, None])
         c2_new = system_chi2(cand, T_cam_body, focal, opts)
@@ -584,7 +593,7 @@ def marginalize_oldest(w: Window, T_cam_body: SE3, focal,
     obs_rest = valid_obs & (w.obs_state >= 1)
     has_obs0 = set_drop(torch.zeros((L,), dtype=torch.bool, device=dev),
                         torch.where(obs0, lm_c, L), True)
-    n_rest = _segment_sum(obs_rest.long(), torch.where(obs_rest, lm_c, L), L)
+    n_rest = segment_sum(obs_rest.long(), torch.where(obs_rest, lm_c, L), L)
     absorb = w.lm_valid & has_obs0 & (n_rest < 2)
 
     # ---- linearize the absorbed landmarks' full observation sets ------
@@ -634,11 +643,13 @@ def marginalize_oldest(w: Window, T_cam_body: SE3, focal,
     H_marg = Hkk - Hk0 @ H00_inv @ H0k
     b_marg = b_tot[DOF:] - Hk0 @ H00_inv @ b_tot[0:DOF]
     # symmetrize + clamp ONLY the negative modes Schur roundoff produces
-    # (reference marginalization_error.hpp:329); eigh reads its info back
+    # (reference marginalization_error.hpp:329); eigh reads its info back.
+    # In float64: LAPACK's float32 syevd fails to converge on some of these
+    # marginals (cond ~1e7) once the window's states step
     H_marg = 0.5 * (H_marg + H_marg.T)
-    eigval, eigvec = torch.linalg.eigh(H_marg)
+    eigval, eigvec = torch.linalg.eigh(H_marg.to(torch.float64))
     eigval = torch.clamp(eigval, min=0.0)
-    H_marg = (eigvec * eigval[None]) @ eigvec.T
+    H_marg = ((eigvec * eigval[None]) @ eigvec.T).to(f32)
 
     # shift into a [D,D] prior on the shifted states (last slot fresh)
     H_new = torch.zeros((D, D), dtype=f32, device=dev)

@@ -43,6 +43,11 @@ class FrameState(NamedTuple):
     def max_fts(self) -> int:
         return self.px.shape[-2]
 
+    @property
+    def image(self) -> torch.Tensor:
+        """Level 0 of the padded pyramid: the full-resolution image."""
+        return self.pyramid[..., 0, :, :]
+
     def valid_mask(self) -> torch.Tensor:
         return ft.is_valid(self.ftype)
 

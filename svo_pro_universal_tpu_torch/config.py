@@ -211,6 +211,12 @@ class BackendOptions:
     zupt_gyro_thresh: float = 0.015      # rad/s incl. mean
     zupt_acc_thresh: float = 0.12        # m/s² deviation from mean
     zupt_sigma_v: float = 0.02           # m/s
+    # port only, off by default: the zero-velocity prior also needs the
+    # frontend's velocity within 3 σ of rest. A window solve that steps its
+    # states (the JAX package's float32 solve voids them on bench.py's
+    # scene) is dragged by the prior on a smoothly moving camera, whose
+    # noise-free IMU reads as stationary (ROADMAP, deliberate divergences)
+    zupt_require_rest: bool = False
     # window capacities (device-resident backend pools)
     max_landmarks: int = 256
     max_obs_per_kf: int = 120

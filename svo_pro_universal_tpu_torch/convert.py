@@ -26,6 +26,7 @@ import torch
 from svo_pro_universal_tpu_torch.backend.device_interface import (
     DeviceBackendState)
 from svo_pro_universal_tpu_torch.backend.imu_factor import PreintFactor
+from svo_pro_universal_tpu_torch.backend.pgo import PoseGraph
 from svo_pro_universal_tpu_torch.backend.window_ba import Window
 from svo_pro_universal_tpu_torch.cameras.projections import Camera
 from svo_pro_universal_tpu_torch.cameras.rig import ImuParams
@@ -34,6 +35,8 @@ from svo_pro_universal_tpu_torch.common.point import LandmarkPool
 from svo_pro_universal_tpu_torch.config import Config
 from svo_pro_universal_tpu_torch.frontend.map import KeyframeRing
 from svo_pro_universal_tpu_torch.frontend.pipeline import WorldState
+from svo_pro_universal_tpu_torch.frontend.pipeline_slam import (
+    SlamOptions, WorldStateSLAM)
 from svo_pro_universal_tpu_torch.frontend.pipeline_vio import WorldStateVIO
 from svo_pro_universal_tpu_torch.utils.transform import SE3
 
@@ -156,6 +159,32 @@ def world_vio(d: Mapping, device=None, seed: int = 0) -> WorldStateVIO:
         last_kf_ts=np.float32(d["last_kf_ts"]),
         imu_packed=tensor(d["imu_packed"], device),
         backend_chi2=tensor(d["backend_chi2"], device))
+
+
+def pose_graph(d: Mapping, device=None) -> PoseGraph:
+    return PoseGraph(**{k: tensor(d[k], device) for k in PoseGraph._fields})
+
+
+def slam_options(d: Mapping) -> SlamOptions:
+    """SlamOptions from the JAX package's (as a dict: ``_asdict()``)."""
+    return SlamOptions(**{k: tuple(v) if isinstance(v, (list, tuple))
+                          else v for k, v in d.items()})
+
+
+def world_slam(d: Mapping, device=None, seed: int = 0) -> WorldStateSLAM:
+    """A port WorldStateSLAM from a JAX ``WorldStateSLAM`` dict: the
+    database, node and constraint counters and the loop count become host
+    integers."""
+    host = ("lc_n", "pgo_n", "pgo_c", "n_loops")
+    extra = {}
+    for k in WorldStateSLAM._fields[len(WorldStateVIO._fields):]:
+        if k == "pgo":
+            extra[k] = pose_graph(d[k], device)
+        elif k in host:
+            extra[k] = int(d[k])
+        else:
+            extra[k] = tensor(d[k], device)
+    return WorldStateSLAM(*world_vio(d, device, seed), **extra)
 
 
 def to_numpy(obj: Any) -> Any:

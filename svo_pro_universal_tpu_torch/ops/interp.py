@@ -1,7 +1,8 @@
-"""Bilinear interpolation and patch offsets.
+"""Bilinear interpolation, patch offsets and patch extraction.
 
 Counterpart of the parts of ``svo_pro_universal_tpu/ops/interp.py`` that the
-mono tracking step uses (reference: vikit vision.h interpolateMat_8u).
+mono tracking step and loop closing use (reference: vikit vision.h
+interpolateMat_8u).
 Coordinates are (u, v) = (x-col, y-row).
 """
 
@@ -44,3 +45,12 @@ def patch_offsets(patch_size: int, dtype=torch.float32,
     r = torch.arange(patch_size, dtype=dtype, device=device) - half
     dv, du = torch.meshgrid(r, r, indexing="ij")
     return torch.stack([du.reshape(-1), dv.reshape(-1)], dim=-1)
+
+
+def extract_patches(img: torch.Tensor, centers: torch.Tensor,
+                    patch_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bilinear P×P patches around ``centers`` [N, 2] (u, v): (patches
+    [N, P²], all taps in bounds [N])."""
+    offs = patch_offsets(patch_size, centers.dtype, centers.device)
+    vals, inb = bilinear(img, centers[:, None, :] + offs[None, :, :])
+    return vals, torch.all(inb, dim=-1)

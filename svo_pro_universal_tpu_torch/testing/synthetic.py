@@ -231,6 +231,23 @@ def bench_twist(t: float) -> np.ndarray:
                      0.001 * tt], np.float32)
 
 
+LOOP_PERIOD = 64                   # frames per lap (3.2 s at 20 Hz)
+LOOP_RADIUS = 0.35                 # m
+LOOP_FRAMES = 160                  # ~2.5 laps
+LOOP_DEGRADE_SEED = 11
+
+
+def loop_twist(t: float) -> np.ndarray:
+    """bench.py's `loop_twist` (bench.py:300-309), the closed loop of its
+    SLAM section: T_cam_world's twist at frame time ``t`` (frames), a lap
+    of ``LOOP_PERIOD`` frames that returns to the start."""
+    a = 2.0 * np.pi * t / LOOP_PERIOD
+    r = LOOP_RADIUS
+    return np.array([r * np.sin(a), 0.05 * np.sin(2 * a),
+                     0.5 * r * (1.0 - np.cos(a)),
+                     0.02 * np.sin(a), 0.03 * np.sin(a), 0.0], np.float32)
+
+
 def _sphere_texture(p: torch.Tensor) -> torch.Tensor:
     x, y, z = p.unbind(-1)
     smooth = (115.0 + 35.0 * torch.sin(4.0 * x) * torch.cos(5.0 * y)

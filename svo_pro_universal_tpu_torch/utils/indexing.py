@@ -16,6 +16,8 @@ the same discrete choices on the CPU and on the card:
   sort is used instead.
 - ``segment_max``: ``scatter_reduce("amax", include_self=False)`` over a
   pre-filled output (−inf for floats, −1 for integers).
+- ``segment_sum``: a float sum in an order fixed by the inputs (CUDA's
+  ``index_add_`` accumulates with atomics in a varying order).
 """
 
 from __future__ import annotations
@@ -93,6 +95,40 @@ def argsort_stable(key: torch.Tensor) -> torch.Tensor:
     if key.dtype == torch.bool:
         key = key.to(torch.int8)
     return torch.sort(key, stable=True).indices
+
+
+def segment_sum(data: torch.Tensor, seg: torch.Tensor, num_segments: int
+                ) -> torch.Tensor:
+    """``jax.ops.segment_sum(data, seg, num_segments)`` over the leading
+    axis (out-of-range segments drop) in an order fixed by the inputs alone.
+
+    ``index_add_`` on CUDA sums floats with atomics, in an order that
+    changes from run to run. Here the rows are sorted stably by segment,
+    so each segment's rows stay in index order, and an inclusive segmented
+    scan (Hillis–Steele: log2(N) rounds of one shifted add) leaves each
+    segment's sum on its last row. The additions are the same on every
+    device, so the CPU and the card give the same bits; a non-finite row
+    reaches only its own segment. Integers sum exactly in any order and
+    take ``index_add_``."""
+    n = num_segments
+    seg = seg.reshape(-1).long()
+    seg = torch.where((seg >= 0) & (seg < n), seg, n)
+    out = torch.zeros((n + 1,) + tuple(data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    if not data.is_floating_point():
+        return out.index_add_(0, seg, data)[:n]
+    s, order = torch.sort(seg, stable=True)
+    d = data.index_select(0, order)
+    trail = (1,) * (d.dim() - 1)
+    k = 1
+    while k < d.shape[0]:
+        same = (s[k:] == s[:-k]).reshape((-1,) + trail)
+        d = torch.cat([d[:k], d[k:] + torch.where(same, d[:-k], 0.0)])
+        k *= 2
+    last = torch.ones_like(s, dtype=torch.bool)
+    last[:-1] = s[1:] != s[:-1]
+    out.index_put_((torch.where(last, s, n),), d)
+    return out[:n]
 
 
 def segment_max(data: torch.Tensor, seg: torch.Tensor, num_segments: int,

@@ -12,15 +12,21 @@ package's, on the CPU.
   ``alignment_solve``, ``marginalize_oldest`` on ``synthetic_ba_window``
   (perturbed): every quantity within 1e-4 relative to its own largest
   entry, or 1e-3 where a solve amplifies rounding (``H_prior``, whose
-  eigenvalues span ~1e8, and the solved states).
+  eigenvalues span ~1e8, and the solved states). The port's float64
+  ``solve_schur`` against JAX's evaluated in float64 on the same system,
+  with and without a once-seen landmark: 1e-6 relative. ``optimize`` steps
+  the states with a once-seen landmark by default and voids under
+  ``void_on_single_view``. ``indexing.segment_sum`` against
+  ``jax.ops.segment_sum``.
 - One ``_marginalize_program`` / ``_step_program`` / ``_apply_program``
   call of ``DeviceBackend``, each from the same JAX state, on a body
   accelerating past a box of landmarks: the slid window within 1e-3
   relative; the keyframe's absorption within 1e-5 with equal slot tables;
   after the whole step the masks and buffer counters equal, the cost not
   above the absorbed state's and every output finite (the LM solves of a
-  window with once-seen landmarks are not reproducible in float32: see
-  the test); the frontend correction within 1e-4.
+  window with once-seen landmarks are not reproducible in float32, so the
+  port's backend runs with ``void_on_single_view`` here: see the test);
+  the frontend correction within 1e-4.
 """
 
 import jax
@@ -47,6 +53,7 @@ from svo_pro_universal_tpu_torch.backend import imu_factor as timf
 from svo_pro_universal_tpu_torch.backend import window_ba as twba
 from svo_pro_universal_tpu_torch.cameras import rig as trig
 from svo_pro_universal_tpu_torch.frontend import imu_handler as tih
+from svo_pro_universal_tpu_torch.utils.indexing import segment_sum
 from svo_pro_universal_tpu_torch.utils.transform import SE3
 
 from torch_parity_utils import to_dict
@@ -301,6 +308,7 @@ def test_build_system_and_solve_match_jax(ba_window):
                sj[5], 1e-4)
     dj = jwba.solve_schur(*sj[:5], 1e-4, jw.lm_valid)
     dt = twba.solve_schur(*st[:5], torch.tensor(1e-4), tw.lm_valid)
+    assert not bool(dt[2])
     assert_rel(dt[0], dj[0], 1e-3, "dx")
     assert_rel(dt[1], dj[1], 1e-3, "dl")
 
@@ -327,17 +335,22 @@ def test_optimize_matches_jax(ba_window):
     assert int(wt.align_n) == int(wj.align_n)
 
 
-def test_optimize_voids_the_state_step_on_a_once_seen_landmark(ba_window):
-    """One landmark left with a single window view voids every iteration's
-    state step (stricter than JAX, which voids only on a non-finite
-    float32 inverse; ROADMAP Queue 3): the states stay as they were, the
-    other landmarks still move, and the count says so."""
-    tw = _port_window(ba_window)
-    lm = tw.obs_lm
-    views = torch.nonzero(tw.obs_valid & (lm == 0)).flatten()
+def _once_seen(tw):
+    """The port window with landmark 0 left one view (its other views'
+    observations switched off)."""
+    views = torch.nonzero(tw.obs_valid & (tw.obs_lm == 0)).flatten()
     assert views.numel() >= 2
-    tw = tw._replace(obs_valid=tw.obs_valid.index_fill(0, views[1:], False))
-    opts = twba.BAOptions(vi_alignment=False)
+    return tw._replace(obs_valid=tw.obs_valid.index_fill(0, views[1:],
+                                                         False))
+
+
+def test_optimize_voids_the_state_step_on_a_once_seen_landmark(ba_window):
+    """Under ``void_on_single_view`` (the rule the parity tests with JAX's
+    float32 runs set) one landmark left with a single window view voids
+    every iteration's state step: the states stay as they were, the other
+    landmarks still move, and the count says so."""
+    tw = _once_seen(_port_window(ba_window))
+    opts = twba.BAOptions(vi_alignment=False, void_on_single_view=True)
     assert twba.single_view_landmarks(tw, _tcb(), torch.tensor(FOCAL),
                                       opts).nonzero().flatten().tolist() \
         == [0]
@@ -349,6 +362,79 @@ def test_optimize_voids_the_state_step_on_a_once_seen_landmark(ba_window):
     assert not torch.equal(wt.lm_pos[1:], tw.lm_pos[1:])
     assert float(ct) < float(twba.system_chi2(tw, _tcb(),
                                               torch.tensor(FOCAL), opts))
+
+
+def test_optimize_steps_the_states_with_a_once_seen_landmark(ba_window):
+    """By default the float64 solve inverts the once-seen landmark's damped
+    block as JAX's float64 evaluation does: no iteration is voided, the
+    states and every landmark move, and the cost falls."""
+    tw = _once_seen(_port_window(ba_window))
+    opts = twba.BAOptions(vi_alignment=False)
+    wt, ct, n_void = twba.optimize(tw, _tcb(), torch.tensor(FOCAL), opts)
+    assert int(n_void) == 0
+    for k in ("q", "p", "v"):
+        assert not torch.equal(getattr(wt, k), getattr(tw, k)), k
+    assert not torch.equal(wt.lm_pos[0], tw.lm_pos[0])
+    c0 = float(twba.system_chi2(tw, _tcb(), torch.tensor(FOCAL), opts))
+    assert float(ct) < 0.5 * c0, (float(ct), c0)
+    for x in (wt.q, wt.p, wt.v, wt.lm_pos):
+        assert torch.isfinite(x).all()
+
+
+@pytest.mark.parametrize("once_seen", [False, True])
+def test_solve_schur_matches_jax_in_float64(ba_window, once_seen):
+    """The default solve against JAX's ``solve_schur`` evaluated in float64
+    (``jax.enable_x64``) on the same float32-built system, upcast: both in
+    float64, so they agree to rounding of the cond ~1e7 system: 1e-6
+    relative to each step's largest entry. With a once-seen landmark the
+    damped rank-2 block is inverted, as the float64 reference does."""
+    tw = _port_window(ba_window)
+    if once_seen:
+        tw = _once_seen(tw)
+    opts = twba.BAOptions()
+    st = twba.build_system(tw, _tcb(), torch.tensor(FOCAL), opts)
+    mu = 1e-4
+    dx, dl, void = twba.solve_schur(*st[:5], torch.tensor(mu), tw.lm_valid)
+    assert dx.dtype == torch.float32 and not bool(void)
+    with jax.enable_x64(True):
+        args = [jnp.asarray(x.numpy().astype(np.float64)) for x in st[:5]]
+        dj = jwba.solve_schur(*args, jnp.float64(mu),
+                              jnp.asarray(tw.lm_valid.numpy()))
+        dj = [np.asarray(x) for x in dj]
+    assert dj[0].dtype == np.float64
+    assert np.abs(dj[0]).max() > 1e-4           # a real state step
+    assert_rel(dx, dj[0], 1e-6, "dx")
+    assert_rel(dl, dj[1], 1e-6, "dl")
+
+
+@pytest.mark.parametrize("shape,n", [((0, 3), 5), ((1,), 5), ((7, 2, 2), 3),
+                                     ((600, 15, 3), 2049), ((1000, 225), 6)])
+def test_segment_sum_matches_jax(shape, n):
+    """``indexing.segment_sum`` (sorted, segmented scan) against
+    ``jax.ops.segment_sum`` on the same rows, out-of-range segments
+    included: within float32 rounding of the summation order (1e-6 of the
+    absolute sum), a NaN row reaching only its own segment, integers
+    exactly."""
+    rng = np.random.default_rng(shape[0] + n)
+    d = rng.normal(0, 1, shape).astype(np.float32)
+    seg = rng.integers(-2, n + 3, shape[0])
+    if shape[0] > 1:
+        seg[0] = 1 % n
+        d[0] = np.nan
+    got = segment_sum(torch.from_numpy(d), torch.from_numpy(seg), n).numpy()
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(d), jnp.asarray(seg),
+                                          n))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = ~np.isnan(want)
+    absum = np.asarray(jax.ops.segment_sum(jnp.abs(jnp.asarray(d)),
+                                           jnp.asarray(seg), n))
+    assert (np.abs(got - want)[fin] <= 1e-6 * absum[fin] + 1e-7).all()
+    di = rng.integers(-50, 50, shape).astype(np.int64)
+    np.testing.assert_array_equal(
+        segment_sum(torch.from_numpy(di), torch.from_numpy(seg), n).numpy(),
+        np.asarray(jax.ops.segment_sum(jnp.asarray(di.astype(np.int32)),
+                                       jnp.asarray(seg), n)))
 
 
 def test_alignment_solve_matches_jax(ba_window):
@@ -410,10 +496,13 @@ def _make_backends():
                             opts=jwba.BAOptions(max_iter=3,
                                                 vi_alignment=False),
                             backend_cfg=cfg.backend, **kw)
+    # the window holds once-seen landmarks, whose float32 blocks decide
+    # JAX's step: the port reproduces the void (see the module docstring)
     tb = tdbe.DeviceBackend(torch.tensor(FOCAL), _tcb(),
                             imu_params=trig.ImuParams(),
                             opts=twba.BAOptions(max_iter=3,
-                                                vi_alignment=False),
+                                                vi_alignment=False,
+                                                void_on_single_view=True),
                             backend_cfg=convert.config(
                                 {"backend": vars(cfg.backend)}).backend,
                             device="cpu", **kw)
@@ -623,3 +712,46 @@ def _frontend(pool, rng):
     jp = jp._replace(pos=jnp.asarray(pool), valid=jnp.ones(P_POOL, bool))
     frame = jax.tree.map(lambda x: x[1], frames)
     return ring, jp, frame
+
+
+@pytest.mark.parametrize("moving", [False, True])
+def test_zero_motion_prior_needs_the_frontend_at_rest(moving):
+    """A noise-free constant specific force reads as stationary to the IMU
+    test of both packages, so by default both put the zero-velocity prior
+    on a window state that moves at 0.5 m/s, as at rest. With the port's
+    opt-in ``zupt_require_rest`` the frontend's velocity (the state's
+    initial v0) must also be within 3 σ of rest: then only the resting
+    state is flagged (ROADMAP, deliberate divergences)."""
+    rng = np.random.default_rng(2)
+    jb, tb = _make_backends()
+    _, tr = _make_backends()
+    tr.zupt_require_rest = True
+    pool = _scene(rng)
+    pk = np.zeros((M_IMU, 8), np.float32)
+    pk[:, 0] = (np.arange(M_IMU) - (M_IMU - 1)) * 0.005
+    pk[:, 4:7] = [ACC, 0.0, G]
+    pk[:, 7] = 1.0
+    dt, J = 0.15, jnp.asarray
+    sj, st, sr = jb.state, tb.state, tr.state
+    for k in range(2):
+        T = se3_exp(jnp.array([-0.5 * dt * k * moving, 0.0, 0.0, 0.0, 0.0,
+                               0.0], jnp.float32))
+        lids, f, valid = _frame_obs(T, pool, rng)
+        mask = pk[:, 7] > 0.5
+        sj = jb._add_keyframe(
+            sj, J(k), jnp.float32(dt), T, J(lids), J(f), J(valid), J(pool),
+            jih.ImuWindow(J(pk[:, 0]), J(pk[:, 1:4]), J(pk[:, 4:7]),
+                          J(mask)), J(True))
+        args = (k, dt, SE3(_t(np.asarray(T.q)), _t(np.asarray(T.t))),
+                _t(lids.astype(np.int64)), _t(f), _t(valid), _t(pool),
+                tih.ImuWindow(_t(pk[:, 0]), _t(pk[:, 1:4]), _t(pk[:, 4:7]),
+                              _t(mask)), True, tdbe.imu_steps(pk[:, 0], mask))
+        st = tb._add_keyframe(st, *args)
+        sr = tr._add_keyframe(sr, *args)
+    rest = 1.0 / tb.zupt_sigma_v ** 2
+    for s in (sj, st):
+        assert float(s.window.zupt[1]) == pytest.approx(rest)
+        assert float(s.window.zupt[0]) == pytest.approx(rest)
+    assert float(sr.window.zupt[1]) == pytest.approx(0.0 if moving
+                                                     else rest)
+    assert float(sr.window.zupt[0]) == pytest.approx(rest)

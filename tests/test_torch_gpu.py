@@ -149,3 +149,25 @@ def test_align_level_matches_plain_version(case):
         assert float(dt) <= 1e-4 * depth, level
         assert int(got[2]) == int(want[2]) > 100, level
         state = want[0]
+
+
+@pytest.mark.gpu
+def test_segment_sum_is_bit_identical_on_the_card():
+    """The backend's float segment sum (``indexing.segment_sum``) at the
+    window's shapes gives the same bits on every call on the card, and the
+    same bits as on the CPU (the same additions in the same order);
+    ``index_add_`` on CUDA sums with atomics in a varying order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run on the card with `python -m "
+                    "pytest --noconftest tests/test_torch_gpu.py -m gpu`")
+    from svo_pro_universal_tpu_torch.utils.indexing import segment_sum
+    gen = torch.Generator().manual_seed(0)
+    for rows, cols, n in ((600, 45, 5 * 4096), (600, 9, 4096),
+                          (600, 240, 5), (1024, 36, 128 * 128)):
+        data = torch.randn((rows, cols), generator=gen) * 1e3
+        seg = torch.randint(0, n + 1, (rows,), generator=gen)
+        seg[: rows // 2] = seg[0]          # one crowded segment
+        want = segment_sum(data, seg, n)
+        dd, sd = data.cuda(), seg.cuda()
+        for _ in range(5):
+            assert torch.equal(segment_sum(dd, sd, n).cpu(), want)

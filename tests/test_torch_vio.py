@@ -101,12 +101,17 @@ def vio_run():
 
 
 def _port(cfg):
+    """The port's pipeline with the window solve's strict void rule: every
+    backend call's window holds once-seen landmarks, and JAX's float32
+    solve voids or keeps its state step by float32 rounding of their
+    blocks, which the port's float64 solve does not reproduce."""
     imu = ImuHandler(ImuParams())
     pipe = DevicePipelineVIO(port_config(cfg),
                              convert.camera(camera_dict(CAM)),
                              imu_handler=imu, imu_params=ImuParams(),
                              trace_capacity=64, gravity=tuple(G_W),
                              device="cpu")
+    pipe.backend.opts = pipe.backend.opts._replace(void_on_single_view=True)
     return pipe, imu
 
 
