@@ -5,8 +5,9 @@
 Drives the port's main paths on the card and checks them end to end:
 ``DevicePipelineMono`` (mono VO tracking, OneShot initialization),
 ``DevicePipelineVIO`` (FivePoint initialization, IMU, window backend: the
-configuration bench.py drives) and ``DevicePipelineSLAM`` (the same VIO plus
-loop closing, pose graph and global map: bench.py's second section), all at
+configuration bench.py drives), ``DevicePipelineSLAM`` (the same VIO plus
+loop closing, pose graph and global map: bench.py's second section) and the
+multi-camera pipelines (stereo VO, stereo VIO, a 3-camera array), all at
 EuRoC size, 752×480, with the capacities of bench.py:159-184. Phases, one
 JSON line each:
 
@@ -17,7 +18,7 @@ JSON line each:
             (median), the byte/operation bound, and one PyTorch library call
             for the gathers. The gathers: each extract_tiles /
             extract_tiles_ring call (tile origins computed in the kernel)
-            and each origins-given call at the nine path shapes, equal to
+            and each origins-given call at the ten path shapes, equal to
             the plain versions, timed by gather_bench.py in a subprocess
             (the ring also with a cold L2), exactly one CUDA kernel per call
             in its torch.profiler traces, gated, and the device ms per
@@ -27,9 +28,10 @@ JSON line each:
             10×10 tiles). align_level
             runs on two rendered views of the
             plane (levels 4..2, each level from the same inputs for both)
-            through four camera models with the prior and alpha/beta off
-            and on (N = 360), two cameras on one body, and N = 768: pose
-            within 1e-4 rad / 1e-4·depth, n_tracked equal.
+            through five camera models (EuRoC's pinhole + radtan among
+            them) with the prior and alpha/beta off and on (N = 360), two
+            pairs of cameras on one body (one the EuRoC stereo rig), and
+            N = 768: pose within 1e-4 rad / 1e-4·depth, n_tracked equal.
 4. slice    40 frames of a textured plane: TRACKING from frame 0 on,
             n_tracked ≥ quality_min_fts, ≥ 2 keyframes, the gathers
             launched on the path and align_level once per pyramid level of
@@ -81,9 +83,42 @@ JSON line each:
             share, and the port's stream synchronizations per frame from
             the profiler's own trace (no sync debug mode in the window).
 
+8. stereo   ``DevicePipelineStereo`` on the EuRoC stereo rig
+            (examples/param/euroc_stereo.yaml: both pinhole + radtan cameras,
+            body at cam0, a 0.110 m baseline) in ``stereo_config``: bench.py's
+            scene along its twist, each view rendered through its own camera
+            and degraded with its own seed (7, 8), 20 warm-up and 120 timed
+            frames; fps, per-stage ms (CUDA events, ``_stereo_triangulate``
+            included), the landmarks and gather launches of each keyframe
+            triangulation, metric unaligned and SE3 ATE, launches, peak
+            memory. Gates (tests/test_device_pipeline_stereo.py:38-48):
+            TRACKING by frame 1 and on ≥ 90% of the timed frames, ≥ 2
+            keyframes, unaligned ATE < 0.15 × path, gather_tiles launched in
+            every triangulation, align_level once per level of every sparse
+            alignment (on cam0 alone), fused_evaluate never.
+   stereo_cpu  the bootstrap + 3 tracking frames on the CPU: the same
+            stages, positions within 5 mm of the card's.
+   stereo_joint  the first 60 frames with ``joint_alignment``: the same
+            gates, every sparse alignment on both cameras (one align_level
+            launch a level carrying both).
+   stereo_vio  ``DevicePipelineStereoVIO`` on the same views plus bench.py's
+            200 Hz IMU (5-state window, 3 LM iterations, the opt-in
+            ``zupt_require_rest``, the window's state steps voided as the
+            JAX package's float32 solve voids them here: see
+            ``STEREO_VIO_SOLVE``): as stereo, plus backend ms per call and
+            the voided share; gated also on backend ≥ 2 states with a finite
+            chi2 > 0 (tests/test_device_pipeline_stereo_vio.py:58-75).
+   stereo_vio_profile  7 frames holding a backend call, as vio_profile.
+   array    ``DevicePipelineArray``: three copies of EuRoC's cam0 in
+            tests/test_pipeline_array.py's layout (+0.11 m in x, +0.09 m in
+            y), degrade seeds 7, 8, 9, 60 frames, 10 warm-up; the stereo
+            gates, and TRACKING on every frame from the first
+            (tests/test_device_pipeline_array.py:34-44).
+
 The ``kernels`` line's ``launches`` are the vio run's, counted from 0 just
-before it (``launches_mono_slice``: the slice run's; ``launches_slam``: the
-slam run's).
+before it (``launches_mono_slice``: the slice run's; ``launches_slam``,
+``launches_stereo``, ``launches_stereo_vio``, ``launches_array``: those
+runs').
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Needs one CUDA card; imports nothing of JAX.
@@ -110,8 +145,14 @@ from svo_pro_universal_tpu_torch.evaluation import ate_rmse
 from svo_pro_universal_tpu_torch.frontend.frame_handler import Stage
 from svo_pro_universal_tpu_torch.frontend.imu_handler import ImuHandler
 from svo_pro_universal_tpu_torch.frontend.pipeline import DevicePipelineMono
+from svo_pro_universal_tpu_torch.frontend.pipeline_array import (
+    DevicePipelineArray)
 from svo_pro_universal_tpu_torch.frontend.pipeline_slam import (
     DevicePipelineSLAM, SlamOptions)
+from svo_pro_universal_tpu_torch.frontend.pipeline_stereo import (
+    DevicePipelineStereo)
+from svo_pro_universal_tpu_torch.frontend.pipeline_stereo_vio import (
+    DevicePipelineStereoVIO)
 from svo_pro_universal_tpu_torch.frontend.pipeline_vio import (
     DevicePipelineVIO)
 from svo_pro_universal_tpu_torch.ops import _cuda, cuda_align, cuda_tiles
@@ -119,7 +160,8 @@ from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
 from svo_pro_universal_tpu_torch.ops import tiles
 from svo_pro_universal_tpu_torch.testing import gather_shapes as gs
 from svo_pro_universal_tpu_torch.testing import synthetic as syn
-from svo_pro_universal_tpu_torch.utils.transform import SE3, se3_exp
+from svo_pro_universal_tpu_torch.utils.transform import (
+    SE3, matrix_to_quat, se3_exp)
 
 W, H = 752, 480
 INTR = (460.0, 460.0, 376.0, 240.0)
@@ -136,7 +178,14 @@ _DEFAULT_BANDWIDTH = 3.35e12       # H100 SXM, 80 GB HBM3
 _FP32_FLOPS = 67e12
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``t_s``)."""
+    if "phase" in obj:
+        obj = obj | {"t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -216,7 +265,7 @@ def bench_gathers() -> list[dict]:
 
 
 def gather_cases(bw: float, cases: list) -> dict:
-    """Both gathers at the nine shapes of the path, on gather_bench.py's
+    """Both gathers at the ten shapes of the path, on gather_bench.py's
     inputs (gather_shapes.path_inputs, same seed): one extract_tiles /
     extract_tiles_ring call (centres mode) against extract_tiles_plain and
     the origins-given gather against gather_tiles_plain, torch.equal; the
@@ -371,6 +420,9 @@ def kernel_cases(bw: float) -> tuple[list, dict]:
 
 ALIGN_CAMERAS = {
     "pinhole": lambda: Camera.pinhole(*INTR, W, H),
+    # EuRoC's cameras (examples/param/euroc_stereo.yaml): pinhole + radtan
+    "pinhole_radtan": lambda: syn.euroc_stereo_rig()[0][0],
+    "euroc_cam1": lambda: syn.euroc_stereo_rig()[0][1],
     "fisheye_equidistant": lambda: Camera(
         ProjectionModel.FISHEYE_EQUIDISTANT, DistortionModel.EQUIDISTANT,
         [300.0, 300.0, 376.0, 240.0], [0.02, -0.01, 0.003, -0.001], W, H),
@@ -384,14 +436,22 @@ ALIGN_CAMERAS = {
 
 
 # (label, [(camera, T_cam_body or None)], prior and alpha/beta on, grid):
-# every camera model with the extras off and on, two cameras on one body,
-# and N = 768, beyond the 560 features the cluster stages
+# every camera model with the extras off and on, two cameras on one body
+# (the EuRoC stereo rig among them, body at cam0, as the stereo pipelines'
+# joint alignment gives it), and N = 768, beyond the 560 features the
+# cluster stages
 ALIGN_CASES = [
     (name, [(name, None)], extras, (24, 15))
-    for name in ALIGN_CAMERAS for extras in (False, True)] + [
+    for name in ("pinhole", "fisheye_equidistant", "omni_radtan",
+                 "pinhole_atan", "pinhole_radtan")
+    for extras in (False, True)] + [
     ("pinhole+fisheye_equidistant", [
         ("pinhole", None),
         ("fisheye_equidistant", syn.pose(0.1, 0.0, 0.0, 0.0, 0.3, 0.0))],
+     False, (24, 15)),
+    ("euroc_stereo", [
+        ("pinhole_radtan", None),
+        ("euroc_cam1", np.linalg.inv(syn.euroc_stereo_rig()[1][1]))],
      False, (24, 15)),
     ("pinhole_n768", [("pinhole", None)], False, (32, 24)),
 ]
@@ -1021,6 +1081,319 @@ def slam_phase(smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the multi-camera pipelines (stereo VO, stereo VIO, N-camera array)
+# on the EuRoC stereo rig and bench.py's scene
+# ---------------------------------------------------------------------------
+
+RIG_FRAMES = 140                   # bench.py:186-187, as the vio phase
+RIG_WARMUP = 20
+STEREO_SEEDS = (7, 8)              # degrade seeds of cam0 and cam1
+STEREO_CPU_TRACKING = 3            # tracking frames after the bootstrap
+STEREO_JOINT_FRAMES = 60
+STEREO_PROFILE_AT = 20             # the first window holds frame 24's call
+ARRAY_FRAMES = 60
+ARRAY_WARMUP = 10
+ARRAY_SEEDS = (7, 8, 9)
+# tests/test_pipeline_array.py's layout, every camera EuRoC's cam0
+ARRAY_T_BODY_CAMS = (np.eye(4), syn.pose(0.11, 0.0, 0.0),
+                     syn.pose(0.0, 0.09, 0.0))
+# Why the stereo_vio cell voids the window's state steps
+# (BAOptions.void_on_single_view): on this input the JAX package's stereo
+# VIO as it ships (float32 solve) voids every state step and tracks 40/40
+# timed frames of 60; with its solve in float64 (the port's default) each
+# backend call moves the pose by 1-2 cm, the per-frame structure stage
+# re-triangulates landmarks from those poses, and it falls to 28/40 with a
+# 0.33 m unaligned ATE, as the port does frame for frame (CPU,
+# tests/reference_cpu.py stereo_vio; PERF.md §6).
+STEREO_VIO_SOLVE = "void_on_single_view"
+RIG_KINDS = {"stereo": ("_stereo_triangulate", DevicePipelineStereo),
+             "stereo_vio": ("_stereo_triangulate", DevicePipelineStereoVIO),
+             "array": ("_triangulate_bundle", DevicePipelineArray)}
+
+
+def stereo_config() -> Config:
+    """vio_config's capacities and frontend settings (bench.py:159-184) as a
+    stereo pipeline, ``cfg.stereo`` at its defaults, with the upper bound
+    of tracked features for a new keyframe at 180, the value of the EuRoC
+    pipeline parameters (examples/param/pinhole.yaml). A stereo map keeps
+    125–195 of its ~340 first landmarks tracked on this scene, so the
+    default bound of 120 lets no keyframe through after the first (a CPU
+    run: 1 keyframe in 140 frames; with 180: 5)."""
+    cfg = vio_config()
+    cfg.pipeline_is_stereo = True
+    cfg.base.kfselect_numkfs_upper_thresh = 180
+    return cfg
+
+
+def se3_of(T: np.ndarray) -> SE3:
+    Tt = torch.as_tensor(np.asarray(T, np.float32))
+    return SE3(matrix_to_quat(Tt[:3, :3]), Tt[:3, 3])
+
+
+class RigRun:
+    """A stereo, stereo-VIO or array pipeline (``kind``) on one device, fed
+    like VioRun: the IMU (stereo VIO) up to each frame's time, then the
+    frame's views."""
+
+    def __init__(self, kind: str, cams: list, T_body_cams: list, cfg: Config,
+                 imu_meas: list, device, n_frames: int,
+                 joint_alignment: bool = False):
+        cls = RIG_KINDS[kind][1]
+        Tb = [se3_of(T) for T in T_body_cams]
+        kw = dict(trace_capacity=n_frames + 1, device=device,
+                  joint_alignment=joint_alignment)
+        self.imu = None
+        if kind == "array":
+            self.pipe = cls(cfg, cams, Tb, **kw)
+            self.add = self.pipe.add_image_bundle
+        else:
+            if kind == "stereo_vio":
+                self.imu = ImuHandler(ImuParams())
+                kw |= dict(imu_handler=self.imu, imu_params=ImuParams())
+            self.pipe = cls(cfg, cams[0], cams[1], Tb[0], Tb[1], **kw)
+            if kind == "stereo_vio":
+                # the JAX package's shipped numerics here (STEREO_VIO_SOLVE)
+                self.pipe.backend.opts = self.pipe.backend.opts._replace(
+                    void_on_single_view=True)
+            self.add = lambda v, ts: self.pipe.add_image_pair(v[0], v[1], ts)
+        self.imu_meas = imu_meas
+        self.i_imu = 0
+        self.device = torch.device(device)
+
+    def feed(self, views: list, t0: int, t1: int, wall=None) -> None:
+        for t in range(t0, t1):
+            ts = t * syn.CAM_DT
+            while (self.imu is not None and self.i_imu < len(self.imu_meas)
+                   and self.imu_meas[self.i_imu][0] <= ts):
+                self.imu.add_measurement(*self.imu_meas[self.i_imu])
+                self.i_imu += 1
+            c0 = time.perf_counter()
+            self.add(views[t], ts)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            if wall is not None:
+                wall.append(time.perf_counter() - c0)
+
+
+def unaligned_ate(est: np.ndarray, gt: np.ndarray) -> float:
+    """Metric ATE with no alignment, positions taken relative to the first
+    frame (tests/test_device_pipeline_stereo.py:38-48)."""
+    d = (est - est[0]) - (gt - gt[0])
+    return float(np.sqrt(np.mean(np.sum(d * d, axis=-1))))
+
+
+def rig_run(smi: str, kind: str, cams: list, T_body_cams: list, views: list,
+            imu_meas: list, n_frames: int, warmup: int, poses: list,
+            joint_alignment: bool = False, phase: str | None = None) -> dict:
+    """One timed run of a rig pipeline on the card: fps overall and steady
+    (best of three chunks), per-stage ms per call (CUDA events), the
+    landmarks each keyframe triangulation made, the gathers it launched,
+    metric unaligned and SE3 ATE, launches, peak memory; and the gates of
+    the JAX tests (TRACKING by frame 1 and on ≥ 90% of the timed frames,
+    ≥ 2 keyframes, unaligned ATE < 0.15 × path, the gathers launched in
+    every triangulation, align_level once per level of every sparse
+    alignment, fused_evaluate never). Returns the run's record."""
+    tri = RIG_KINDS[kind][0]
+    cfg = stereo_config()
+    if kind == "array":
+        cfg.pipeline_is_stereo = False
+    run = RigRun(kind, cams, T_body_cams, cfg, imu_meas, "cuda", n_frames,
+                 joint_alignment)
+    pipe = run.pipe
+    events: list = []
+    names = STAGES + (tri,)
+    if kind == "stereo_vio":
+        names += ("_vio_backend_step",)
+        time_methods(pipe.backend, BACKEND_PROGRAMS, events)
+    time_methods(pipe, names, events)
+    tri_gathers: list = []
+    count_launches_in(pipe, tri, cuda_tiles.GATHER_TILES, tri_gathers)
+    landmarks: list = []
+    inner = getattr(pipe, tri)
+
+    def logged(*a, **k):
+        out = inner(*a, **k)
+        landmarks.append(out[3])          # read after the run
+        return out
+    setattr(pipe, tri, logged)
+    n_align_cams: list = []
+    extra_inputs = pipe._extra_align_inputs
+
+    def counted_inputs(*a, **k):
+        out = extra_inputs(*a, **k)
+        n_align_cams.append(1 + len(out))
+        return out
+    pipe._extra_align_inputs = counted_inputs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_counts()
+    wall: list = []
+    run.feed(views, 0, warmup, wall)
+    edges = [warmup + (n_frames - warmup) * i // 3 for i in range(4)]
+    chunk_fps = []
+    for a, b in zip(edges[:-1], edges[1:]):
+        c0 = time.perf_counter()
+        run.feed(views, a, b, wall)
+        chunk_fps.append((b - a) / (time.perf_counter() - c0))
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    torch.cuda.synchronize()
+    mats, meta = pipe.drain()
+    stage_ms: dict = {}
+    for nm, s, e in events:
+        c, t = stage_ms.get(nm, (0, 0.0))
+        stage_ms[nm] = (c + 1, t + s.elapsed_time(e))
+    stages = meta[:, 0].astype(int)
+    n_timed = n_frames - warmup
+    n_tracking = int((stages[warmup:] == Stage.TRACKING.value).sum())
+    tracking = stages == Stage.TRACKING.value
+    first_track = int(np.argmax(tracking)) if tracking.any() else -1
+    timed_wall = np.asarray(wall[warmup:])
+    n_kf = int(meta[1:, 2].sum())
+    line = {
+        "phase": phase or kind, "card": smi, "pipeline": type(pipe).__name__,
+        "cameras": [c.label for c in cams],
+        "resolution": [cams[0].width, cams[0].height], "frames": n_frames,
+        "warmup": warmup, "joint_alignment": joint_alignment,
+        "fps_overall": float(n_timed / timed_wall.sum()),
+        "fps_steady": float(max(chunk_fps)), "fps_chunks": chunk_fps,
+        "frame_ms_median": float(np.median(timed_wall) * 1e3),
+        "n_tracking": n_tracking, "n_timed": n_timed,
+        "first_tracking_frame": first_track, "keyframes_after_first": n_kf,
+        "landmarks_per_triangulation": [int(x) for x in landmarks],
+        "gathers_per_triangulation": tri_gathers,
+        "align_cameras": sorted(set(n_align_cams)),
+        "stage_ms_per_call": {k.lstrip("_"): t / c
+                              for k, (c, t) in stage_ms.items()},
+        "stage_calls": {k.lstrip("_"): c for k, (c, _) in stage_ms.items()},
+        "launches": counts,
+        "launches_per_frame": {k: v / n_frames for k, v in counts.items()},
+        "peak_mem_MB": torch.cuda.max_memory_allocated() / 2 ** 20}
+    if kind == "stereo_vio":
+        w = pipe.world
+        line |= {"window_solve": STEREO_VIO_SOLVE,
+                 "backend_keyframes": w.backend_k,
+                 "backend_chi2": float(w.backend_chi2),
+                 "backend_lm_iterations": pipe.backend.lm_iterations,
+                 "backend_lm_voided_share": (
+                     int(pipe.backend.lm_voided)
+                     / max(pipe.backend.lm_iterations, 1))}
+    if first_track >= 0:
+        gt = np.stack([np.linalg.inv(T)[:3, 3]
+                       for T in poses[first_track:n_frames]])
+        est = mats[first_track:, :3, 3]
+        line |= {"ate_unaligned_m": unaligned_ate(est, gt),
+                 "ate_se3_m": ate_rmse(est, gt, align="se3")[0],
+                 "traj_len_m": float(np.linalg.norm(np.diff(gt, axis=0),
+                                                    axis=-1).sum())}
+    emit(line)
+
+    # ---- gates ---------------------------------------------------------
+    label = line["phase"]
+    if not 0 <= first_track <= 1:
+        fail(f"{label}: TRACKING first reached at frame {first_track}")
+    if n_tracking < 0.9 * n_timed:
+        fail(f"{label}: TRACKING on {n_tracking}/{n_timed} timed frames")
+    if n_kf < 2:
+        fail(f"{label}: {n_kf} keyframes after the first")
+    if not (np.isfinite(mats).all()
+            and line["ate_unaligned_m"] < 0.15 * line["traj_len_m"]):
+        fail(f"{label}: unaligned ATE {line.get('ate_unaligned_m')} m over "
+             f"{line.get('traj_len_m')} m")
+    if not tri_gathers or min(tri_gathers) <= 0:
+        fail(f"{label}: gather_tiles launches per triangulation "
+             f"{tri_gathers}")
+    ia = cfg.img_align
+    n_align = stage_ms.get("_stage_align", (0, 0.0))[0]
+    if (n_align == 0 or counts["align_level"]
+            != (ia.max_level - ia.min_level + 1) * n_align
+            or counts["fused_evaluate"] != 0
+            or min(counts["gather_tiles"], counts["gather_tiles_ring"]) <= 0):
+        fail(f"{label}: launches {counts} for {n_align} sparse alignments")
+    want_cams = len(cams) if joint_alignment else 1
+    if line["align_cameras"] != [want_cams]:
+        fail(f"{label}: sparse alignment on {line['align_cameras']} cameras,"
+             f" expected {want_cams}")
+    if kind == "stereo_vio" and not (
+            line["backend_keyframes"] >= 2
+            and np.isfinite(line["backend_chi2"])
+            and line["backend_chi2"] > 0):
+        fail(f"{label}: backend {line['backend_keyframes']} states, chi2 "
+             f"{line['backend_chi2']}")
+    return dict(line=line, counts=counts, mats=mats, meta=meta,
+                first_track=first_track)
+
+
+def stereo_phases(smi: str) -> dict:
+    """The stereo VO, its CPU check and joint-alignment run, the stereo VIO
+    and its profile, and the array. Returns the launch counts of each main
+    run."""
+    cams, T_body = syn.euroc_stereo_rig()
+    t0 = time.perf_counter()
+    poses, views, imu_meas = syn.rig_sequence(RIG_FRAMES, cams, T_body,
+                                              STEREO_SEEDS, "cuda")
+    data_s = time.perf_counter() - t0
+    out = {}
+
+    # ---- stereo VO -----------------------------------------------------
+    st = rig_run(smi, "stereo", cams, T_body, views, [], RIG_FRAMES,
+                 RIG_WARMUP, poses)
+    out["stereo"] = st["counts"]
+
+    # ---- the bootstrap + 3 tracking frames on the CPU ------------------
+    n_cpu = st["first_track"] + 1 + STEREO_CPU_TRACKING
+    cpu = RigRun("stereo", cams, T_body, stereo_config(), [], "cpu",
+                 RIG_FRAMES)
+    c0 = time.perf_counter()
+    cpu.feed(views, 0, n_cpu)
+    cmats, cmeta = cpu.pipe.drain()
+    gap = np.linalg.norm(cmats[:, :3, 3] - st["mats"][:n_cpu, :3, 3], axis=-1)
+    same = bool((cmeta[:, 0] == st["meta"][:n_cpu, 0]).all())
+    emit({"phase": "stereo_cpu", "card": smi, "frames": n_cpu,
+          "max_pos_gap_m": float(gap.max()), "stages_equal": same,
+          "n_tracked_card": st["meta"][:n_cpu, 1].astype(int).tolist(),
+          "n_tracked_cpu": cmeta[:, 1].astype(int).tolist(),
+          "cpu_s": time.perf_counter() - c0, "data_s": data_s})
+    if gap.max() > POSE_TOL_M or not same:
+        fail(f"stereo: card and CPU disagree: gap {gap.max()} m, stages "
+             f"{cmeta[:, 0].tolist()}")
+
+    # ---- joint alignment on both cameras -------------------------------
+    rig_run(smi, "stereo", cams, T_body, views, [], STEREO_JOINT_FRAMES,
+            RIG_WARMUP, poses, joint_alignment=True, phase="stereo_joint")
+
+    # ---- stereo VIO, then a profile holding a backend call -------------
+    sv = rig_run(smi, "stereo_vio", cams, T_body, views, imu_meas,
+                 RIG_FRAMES, RIG_WARMUP, poses)
+    out["stereo_vio"] = sv["counts"]
+    prof_run = RigRun("stereo_vio", cams, T_body, stereo_config(), imu_meas,
+                      "cuda", RIG_FRAMES)
+    prof_run.feed(views, 0, STEREO_PROFILE_AT)
+    a, n = STEREO_PROFILE_AT, VIO_PROFILE_FRAMES
+    k0 = prof_run.pipe.world.last_kf_ts
+    prof = profile_run(lambda: prof_run.feed(views, a, a + n),
+                       lambda: prof_run.feed(views, a + n, a + 2 * n), n)
+    prof |= {"phase": "stereo_vio_profile", "card": smi,
+             "frames": [a, a + n],
+             "backend_calls_in_window": int(prof_run.pipe.world.last_kf_ts
+                                            != k0)}
+    emit(prof)
+    del prof_run, views
+
+    # ---- the 3-camera array --------------------------------------------
+    acams = [cams[0]] * 3
+    poses, views, _ = syn.rig_sequence(ARRAY_FRAMES, acams,
+                                       list(ARRAY_T_BODY_CAMS), ARRAY_SEEDS,
+                                       "cuda")
+    ar = rig_run(smi, "array", acams, list(ARRAY_T_BODY_CAMS), views, [],
+                 ARRAY_FRAMES, ARRAY_WARMUP, poses)
+    stages = ar["meta"][:, 0].astype(int)
+    if not (stages[ar["first_track"]:] == Stage.TRACKING.value).all():
+        fail(f"array: left TRACKING: stages {stages.tolist()}")
+    out["array"] = ar["counts"]
+    return out
+
+
 def _to(x, device):
     """A NamedTuple of tensors (and host values) on ``device``."""
     return type(x)(*(t.to(device) if torch.is_tensor(t) else t for t in x))
@@ -1186,6 +1559,7 @@ def main() -> None:
 
     vio_counts = vio_phase(smi)
     slam_counts = slam_phase(smi)
+    rig_counts = stereo_phases(smi)
 
     kernels = []
     for k in _cuda.KERNELS:
@@ -1196,6 +1570,8 @@ def main() -> None:
             replaces=k.replaces, launches=vio_counts[k.name],
             launches_mono_slice=counts[k.name],
             launches_slam=slam_counts[k.name],
+            **{f"launches_{kind}": cnt[k.name]
+               for kind, cnt in rig_counts.items()},
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"])

@@ -1,12 +1,12 @@
-"""Tile-gather timings at the shapes of the mono tracking step and of the
-FivePoint bootstrap's KLT, for one tree of the PyTorch/CUDA port, on one
+"""Tile-gather timings at the shapes of the mono tracking step, of the
+FivePoint bootstrap's KLT and of the stereo triangulation, for one tree of the PyTorch/CUDA port, on one
 NVIDIA card.
 
     python3 gather_bench.py [--root DIR]
 
 Imports ``svo_pro_universal_tpu_torch`` from DIR (default: the directory of
 this file), so one run on the card can time two commits: unpack the other
-into a directory and pass it. For each of the nine (kernel, N, tile) shapes
+into a directory and pass it. For each of the ten (kernel, N, tile) shapes
 of the main path (``PATH_SHAPES`` of
 ``svo_pro_universal_tpu_torch/testing/gather_shapes.py``, which makes the
 inputs and holds the timers) it measures, by CUDA events:

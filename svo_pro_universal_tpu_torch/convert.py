@@ -35,8 +35,14 @@ from svo_pro_universal_tpu_torch.common.point import LandmarkPool
 from svo_pro_universal_tpu_torch.config import Config
 from svo_pro_universal_tpu_torch.frontend.map import KeyframeRing
 from svo_pro_universal_tpu_torch.frontend.pipeline import WorldState
+from svo_pro_universal_tpu_torch.frontend.pipeline_array import (
+    WorldStateArray)
 from svo_pro_universal_tpu_torch.frontend.pipeline_slam import (
     SlamOptions, WorldStateSLAM)
+from svo_pro_universal_tpu_torch.frontend.pipeline_stereo import (
+    WorldStateStereo)
+from svo_pro_universal_tpu_torch.frontend.pipeline_stereo_vio import (
+    WorldStateStereoVIO)
 from svo_pro_universal_tpu_torch.frontend.pipeline_vio import WorldStateVIO
 from svo_pro_universal_tpu_torch.utils.transform import SE3
 
@@ -150,15 +156,40 @@ def backend_state(d: Mapping, device=None) -> DeviceBackendState:
     return DeviceBackendState(**out)
 
 
+def _vio_extras(d: Mapping, device) -> dict:
+    """The VIO fields of a JAX world dict (WorldStateVIO's names)."""
+    return dict(backend=backend_state(d["backend"], device),
+                backend_k=int(d["backend_k"]),
+                last_kf_ts=np.float32(d["last_kf_ts"]),
+                imu_packed=tensor(d["imu_packed"], device),
+                backend_chi2=tensor(d["backend_chi2"], device))
+
+
 def world_vio(d: Mapping, device=None, seed: int = 0) -> WorldStateVIO:
     """A port WorldStateVIO from a JAX ``WorldStateVIO`` dict."""
-    base = world(d, device, seed)
-    return WorldStateVIO(
-        *base, backend=backend_state(d["backend"], device),
-        backend_k=int(d["backend_k"]),
-        last_kf_ts=np.float32(d["last_kf_ts"]),
-        imu_packed=tensor(d["imu_packed"], device),
-        backend_chi2=tensor(d["backend_chi2"], device))
+    return WorldStateVIO(*world(d, device, seed), **_vio_extras(d, device))
+
+
+def world_stereo(d: Mapping, device=None, seed: int = 0) -> WorldStateStereo:
+    """A port WorldStateStereo from a JAX ``WorldStateStereo`` dict."""
+    return WorldStateStereo(*world(d, device, seed),
+                            pyr1_cur=tensor(d["pyr1_cur"], device),
+                            pyr1_prev=tensor(d["pyr1_prev"], device))
+
+
+def world_stereo_vio(d: Mapping, device=None, seed: int = 0
+                     ) -> WorldStateStereoVIO:
+    """A port WorldStateStereoVIO from a JAX ``WorldStateStereoVIO``
+    dict."""
+    return WorldStateStereoVIO(*world_stereo(d, device, seed),
+                               **_vio_extras(d, device))
+
+
+def world_array(d: Mapping, device=None, seed: int = 0) -> WorldStateArray:
+    """A port WorldStateArray from a JAX ``WorldStateArray`` dict."""
+    return WorldStateArray(*world(d, device, seed),
+                           pyrs_cur=tensor(d["pyrs_cur"], device),
+                           pyrs_prev=tensor(d["pyrs_prev"], device))
 
 
 def pose_graph(d: Mapping, device=None) -> PoseGraph:

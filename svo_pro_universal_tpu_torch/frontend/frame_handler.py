@@ -111,8 +111,17 @@ class FrameHandlerMono:
             cfg.base.structure_optimization_max_pts)
 
     # ------------------------------------------------------------------
-    def _stage_align(self, ring, pool, last_frame, cur_pyramid, T_prior_rel):
-        """Stage 1: sparse image alignment vs the last frame. Returns
+    def _extra_align_inputs(self, ring, pool, last_frame, extra):
+        """Secondary-camera ``CameraInput``s for joint multi-camera
+        alignment (JAX frame_handler.py:153-160). Mono: none; the stereo and
+        array pipelines build them from ``extra`` when joint alignment is
+        on."""
+        return []
+
+    def _stage_align(self, ring, pool, last_frame, cur_pyramid, T_prior_rel,
+                     extra=None):
+        """Stage 1: sparse image alignment vs the last frame, jointly over
+        the rig's cameras when ``_extra_align_inputs`` gives more. Returns
         (T_cur_world, align_stats)."""
         cfg = self.cfg
         xyz_w, has_pt = _feature_world_points(last_frame, ring, pool)
@@ -135,8 +144,10 @@ class FrameHandlerMono:
         T_prior_body = (T_body_cam.compose(T_prior_rel)
                         .compose(self.T_cam_body))
         st0 = sia_mod.make_state(T_prior_body)
+        inputs = [inp] + self._extra_align_inputs(ring, pool, last_frame,
+                                                  extra)
         align_state, align_stats = sia_mod.run(
-            [inp], st0, opts,
+            inputs, st0, opts,
             T_prior=(T_prior_body if cfg.base.img_align_prior_lambda_rot > 0
                      else None))
         T_cur_world = (self.T_cam_body.compose(align_state.T_icur_iref)
@@ -332,12 +343,14 @@ class FrameHandlerMono:
                     kf_too_close=torch.any(close))
 
     def _tracking_step(self, ring, pool, last_frame, cur_frame, T_prior_rel,
-                       depth_scalars):
+                       depth_scalars, extra=None):
         """Sparse align → reproject → pose opt → structure opt → seed
-        update. Returns (ring, pool, frame, stats) with device scalars."""
+        update. ``extra`` carries the secondary cameras' pyramids for joint
+        alignment. Returns (ring, pool, frame, stats) with device
+        scalars."""
         cfg = self.cfg
         T_cur_world, align_stats = self._stage_align(
-            ring, pool, last_frame, cur_frame.pyramid, T_prior_rel)
+            ring, pool, last_frame, cur_frame.pyramid, T_prior_rel, extra)
         ov = overlap_mask(ring, T_cur_world, cfg.reprojector.max_n_kfs)
         frame, rep = self._stage_reproject(ring, pool, cur_frame,
                                            T_cur_world, ov)

@@ -147,6 +147,12 @@ class DevicePipelineMono(FrameHandlerMono):
         CPU generator."""
         return init_mod.gumbel_noise(world.rng, (n_hyp, n), self.device)
 
+    def _device_align_extra(self, world: WorldState):
+        """The secondary cameras' pyramids for joint alignment, read from
+        the world (JAX pipeline.py:266-269); the stereo and array pipelines
+        override it. Mono: none."""
+        return None
+
     def _reset_world_extras(self, world):
         """Hook for subclasses to clear their extra world fields on a full
         restart (initialization lost, relocalization given up); the VIO
@@ -284,7 +290,7 @@ class DevicePipelineMono(FrameHandlerMono):
         cfg = self.cfg
         ring, pool, tracked, stats = self._tracking_step(
             world.ring, world.pool, world.last_frame, frame, T_prior_rel,
-            world.depth_state)
+            world.depth_state, self._device_align_extra(world))
         n_tracked, med_disp, too_close = torch.stack([
             stats["n_tracked"].float(), stats["med_disparity"],
             stats["kf_too_close"].float()]).tolist()   # the frame's one read
@@ -374,6 +380,28 @@ class DevicePipelineMono(FrameHandlerMono):
         if T_prior_rel is None:
             T_prior_rel = world.T_rel_prev
         return self._run_state_machine(world, frame, ts, T_prior_rel)
+
+    def _upload(self, img, aux: np.ndarray
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The frame's one host→device copy: ``aux`` (float32) then the
+        image bytes (uint8 or float32; one image, or the rig's stacked) in
+        one buffer, pinned and copied asynchronously on the card. Returns
+        (image, aux) views on the device."""
+        arr = np.ascontiguousarray(np.asarray(img))
+        if arr.dtype not in (np.uint8, np.float32):
+            arr = arr.astype(np.float32)
+        buf = np.concatenate([aux.view(np.uint8), arr.reshape(-1).view(
+            np.uint8)])
+        host = torch.from_numpy(buf)
+        if self.device.type == "cuda":
+            dev = host.pin_memory().to(self.device, non_blocking=True)
+        else:
+            dev = host
+        n = aux.nbytes
+        aux_d = dev[:n].view(torch.float32)
+        img_d = dev[n:].view(torch.uint8 if arr.dtype == np.uint8
+                             else torch.float32).reshape(arr.shape)
+        return img_d, aux_d
 
     def _motion_prior(self, timestamp: float) -> SE3:
         """Constant-velocity translation with, given an IMU, the gyro

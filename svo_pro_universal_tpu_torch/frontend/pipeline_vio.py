@@ -185,28 +185,6 @@ class DevicePipelineVIO(DevicePipelineMono):
         return np.concatenate([packed.ravel(), q, np.array(
             [self._rel_ts(timestamp)], np.float32)]).astype(np.float32)
 
-    def _upload(self, img, aux: np.ndarray
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The frame's one host→device copy: ``aux`` (float32) then the
-        image bytes (uint8 or float32) in one buffer, pinned and copied
-        asynchronously on the card. Returns (image, aux) views on the
-        device."""
-        arr = np.ascontiguousarray(np.asarray(img))
-        if arr.dtype not in (np.uint8, np.float32):
-            arr = arr.astype(np.float32)
-        buf = np.concatenate([aux.view(np.uint8), arr.reshape(-1).view(
-            np.uint8)])
-        host = torch.from_numpy(buf)
-        if self.device.type == "cuda":
-            dev = host.pin_memory().to(self.device, non_blocking=True)
-        else:
-            dev = host
-        n = aux.nbytes
-        aux_d = dev[:n].view(torch.float32)
-        img_d = dev[n:].view(torch.uint8 if arr.dtype == np.uint8
-                             else torch.float32).reshape(arr.shape)
-        return img_d, aux_d
-
     def add_image(self, img, timestamp: float) -> None:
         """One upload, one pass through the state machine."""
         m = self._imu_m

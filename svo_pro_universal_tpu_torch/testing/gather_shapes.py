@@ -1,5 +1,5 @@
-"""The tile gathers at the shapes of the mono tracking step and of the
-FivePoint bootstrap's KLT, and CUDA-event
+"""The tile gathers at the shapes of the mono tracking step, of the
+FivePoint bootstrap's KLT and of the stereo triangulation, and CUDA-event
 timers: the inputs and calls that ``gather_bench.py`` times and
 ``chip_smoke.py`` holds against the plain versions, so both make the same
 inputs from the same seed.
@@ -29,6 +29,10 @@ PATH_SHAPES = [
     # and 26 are no multiples of 4)
     ("gather_tiles", 360, 14, "KLT reference border patches"),
     ("gather_tiles", 360, 26, "KLT search tiles"),
+    # the stereo and array pipelines' keyframe triangulation: cam0's
+    # reference tiles (24, as the alignment's) and the epipolar scan in
+    # the secondary camera's pyramid
+    ("gather_tiles", 360, 40, "stereo triangulation, epipolar scan"),
 ]
 
 

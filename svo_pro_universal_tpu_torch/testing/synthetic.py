@@ -9,12 +9,17 @@ without running off the texture, seen through a pinhole or through any
 camera model of the port; ``align_problem``, a sparse-alignment input
 built from two such views; ``rotation_gap`` to compare poses; and
 ``tile_case`` and ``tile_gather_mismatches``, which hold the tile
-gathers (origin arithmetic included) to their plain versions; and bench.py's
+gathers (origin arithmetic included) to their plain versions; bench.py's
 mono-VIO input (``bench_sequence``: its sphere+plane scene along its
-``twist`` trajectory, ``degrade_sequence``, the 200 Hz IMU stream).
+``twist`` trajectory, ``degrade_sequence``, the 200 Hz IMU stream); and the
+same scene seen by a camera rig (``rig_sequence``), with the EuRoC stereo
+rig of examples/param/euroc_stereo.yaml (``euroc_stereo_rig``).
 """
 
 from __future__ import annotations
+
+import re
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -355,6 +360,72 @@ def bench_sequence(n_frames: int, degrade_seed: int = 7, device=None,
               for T in poses]
     return (poses, degrade_sequence(frames, seed=degrade_seed),
             bench_imu_stream(twist_fn, n_frames))
+
+
+def rig_sequence(n_frames: int, cams: list, T_body_cams: list,
+                 degrade_seeds: list, device=None, twist_fn=bench_twist
+                 ) -> tuple[list, list, list]:
+    """bench.py's scene along ``twist_fn`` seen by a rig whose body is cam0
+    (``T_body_cams[0]`` the identity, so bench.py's IMU stream, whose body
+    is the camera, stays valid): (T_cam0_world [4×4] of each frame, per
+    frame the uint8 view of every camera, rendered through its own model
+    from its own pose on ``device`` and degraded with its own seed, the
+    200 Hz IMU stream)."""
+    if not np.allclose(T_body_cams[0], np.eye(4)):
+        raise ValueError("the rig's body must be cam0")
+    poses = [se3_exp_np(twist_fn(float(t))) for t in range(n_frames)]
+    views = []
+    for cam, T_bc, seed in zip(cams, T_body_cams, degrade_seeds):
+        T_cb = np.linalg.inv(np.asarray(T_bc, np.float64))
+        views.append(degrade_sequence(
+            [render_sphere_scene(T_cb @ T, cam, device).astype(np.uint8)
+             for T in poses], seed=seed))
+    return poses, [list(v) for v in zip(*views)], bench_imu_stream(
+        twist_fn, n_frames)
+
+
+EUROC_STEREO_YAML = (Path(__file__).resolve().parents[2] / "examples"
+                     / "param" / "euroc_stereo.yaml")
+_CALIB_PROJ = {"pinhole": proj.ProjectionModel.PINHOLE}
+_CALIB_DIST = {"radial-tangential": proj.DistortionModel.RADTAN,
+               "none": proj.DistortionModel.NONE}
+
+
+def load_calibration(path) -> list[tuple[proj.Camera, np.ndarray]]:
+    """(camera, T_B_C [4×4]) of each camera of a pinhole rig calibration in
+    the reference's schema (examples/param/*.yaml), read with regular
+    expressions so that no YAML library is needed: per ``- camera:`` block
+    its image size, type, distortion type and the three ``data`` lists
+    (intrinsics, distortion parameters, T_B_C) in that order."""
+    text = Path(path).read_text()
+    out = []
+    for block in re.split(r"^- camera:", text, flags=re.M)[1:]:
+        block = block.split("\nimu_params:")[0]
+
+        def field(key):
+            return re.search(rf"^\s*{key}:\s*(\S+)", block, re.M).group(1)
+
+        data = [np.array([float(v) for v in m.split(",")])
+                for m in re.findall(r"data:\s*\[([^\]]*)\]", block)]
+        dist = re.search(r"distortion:\s*\n\s*type:\s*(\S+)", block)
+        cam = proj.Camera(
+            _CALIB_PROJ[field("type")],
+            _CALIB_DIST[dist.group(1) if dist else "none"],
+            data[0].astype(np.float32),
+            (data[1] if dist else np.zeros(1)).astype(np.float32),
+            int(field("image_width")), int(field("image_height")),
+            field("label"))
+        out.append((cam, data[-1].reshape(4, 4)))
+    return out
+
+
+def euroc_stereo_rig(path=EUROC_STEREO_YAML
+                     ) -> tuple[list[proj.Camera], list[np.ndarray]]:
+    """The EuRoC stereo rig with its body at cam0: both pinhole+radtan
+    cameras and T_body_cam [4×4] = (I, T_B_C0⁻¹·T_B_C1), a 0.110 m
+    baseline along cam0's x."""
+    (cam0, T0), (cam1, T1) = load_calibration(path)
+    return [cam0, cam1], [np.eye(4), np.linalg.inv(T0) @ T1]
 
 
 def rotation_gap(qa, qb) -> float:

@@ -6,6 +6,8 @@ JAX.
         [--no-zupt]
     JAX_PLATFORMS=cpu python tests/reference_cpu.py slam
     JAX_PLATFORMS=cpu python tests/reference_cpu.py stepwise
+    JAX_PLATFORMS=cpu python tests/reference_cpu.py {stereo,stereo_vio}
+        [--solve float64] [--no-zupt] [--frames N] [--structure-pts N]
 
 `vio`: bench.py's mono_vio_degraded_imagery configuration on its degraded
 sphere scene (140 frames, degrade seed 7), fed one frame at a time; prints
@@ -27,6 +29,18 @@ zero-velocity prior), both stepped on the frame; prints one JSON line per
 frame (stage, keyframe, tracked count, pose gap, pose-graph nodes, the
 verification counts, and for a keyframe its snapshot row against JAX's)
 and a summary line.
+
+`stereo`, `stereo_vio`: the JAX device stereo pipelines on chip_smoke's
+stereo input (the EuRoC rig of examples/param/euroc_stereo.yaml, body at
+cam0; bench.py's scene seen by both cameras, degrade seeds 7 and 8; the
+stereo VIO with bench.py's IMU), in chip_smoke's ``stereo_config``; prints
+one JSON line per frame (stage, tracked count, keyframe, window states,
+the position's distance to the ground truth, both relative to the first
+frame) and a summary line: TRACKING over the timed frames, metric
+unaligned and SE3 ATE, the zero-step share. `--structure-pts` sets the
+per-frame structure stage's point budget (JAX's stereo VIO keeps
+`cfg.base.structure_optimization_max_pts`, 20; JAX's mono device VIO sets
+0).
 
 The configuration and the scene come from chip_smoke.py and the port's
 `testing.synthetic` (numpy frames rendered on the CPU). A full-width run
@@ -144,6 +158,77 @@ def accuracy(h, poses, warmup: int) -> dict:
                                                axis=-1).sum())}
 
 
+def jax_rig():
+    """chip_smoke's EuRoC stereo rig as JAX cameras and T_body_cam."""
+    from svo_pro_universal_tpu.utils.transform import SE3
+    tcams, Tb = syn.euroc_stereo_rig()
+    cams = [Camera(c.projection, c.distortion, c.intrinsics.numpy(),
+                   c.dist_params.numpy(), c.width, c.height, c.label)
+            for c in tcams]
+    Ts = []
+    for T in Tb:
+        p = cs.se3_of(T)
+        Ts.append(SE3(jnp.asarray(p.q.numpy()), jnp.asarray(p.t.numpy())))
+    return tcams, Tb, cams, Ts
+
+
+def stereo(phase: str, n: int, structure_pts: int | None) -> dict:
+    """The JAX stereo (VIO) pipeline on chip_smoke's stereo input, one JSON
+    line a frame; returns the summary."""
+    from svo_pro_universal_tpu.frontend.pipeline_stereo import (
+        DevicePipelineStereo)
+    from svo_pro_universal_tpu.frontend.pipeline_stereo_vio import (
+        DevicePipelineStereoVIO)
+    tcams, Tb, cams, Ts = jax_rig()
+    poses, views, imu_meas = syn.rig_sequence(n, tcams, Tb, cs.STEREO_SEEDS)
+    cfg = jax_config()
+    pcfg = cs.stereo_config()
+    cfg.pipeline_is_stereo = True
+    cfg.base.kfselect_numkfs_upper_thresh = (
+        pcfg.base.kfselect_numkfs_upper_thresh)
+    if structure_pts is not None:
+        cfg.base.structure_optimization_max_pts = structure_pts
+    imu = ImuHandler(ImuParams())
+    if phase == "stereo_vio":
+        h = DevicePipelineStereoVIO(cfg, cams[0], cams[1], Ts[0], Ts[1],
+                                    imu_handler=imu, imu_params=ImuParams(),
+                                    trace_capacity=n + 1)
+    else:
+        h = DevicePipelineStereo(cfg, cams[0], cams[1], Ts[0], Ts[1],
+                                 trace_capacity=n + 1)
+    gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])
+    i = 0
+    for t in range(n):
+        ts = t * syn.CAM_DT
+        while i < len(imu_meas) and imu_meas[i][0] <= ts:
+            imu.add_measurement(*imu_meas[i])
+            i += 1
+        h.add_image_pair(np.asarray(views[t][0]), np.asarray(views[t][1]),
+                         ts)
+        w = h.world
+        m = np.asarray(w.trace_meta)[t]
+        pos = np.asarray(w.trace_t)[t]
+        rec = {"k": t, "stage": int(m[0]), "n_tracked": int(m[1]),
+               "kf": int(m[2]),
+               "err_m": float(np.linalg.norm(pos - (gt[t] - gt[0])))}
+        if phase == "stereo_vio":
+            rec["backend_k"] = int(w.backend_k)
+        print(json.dumps(rec), flush=True)
+    mats, meta = h.drain()
+    st = meta[:, 0].astype(int)
+    first = int(np.argmax(st == TRACKING))
+    est = mats[first:, :3, 3]
+    g = gt[first:]
+    warmup = cs.RIG_WARMUP
+    return {"n_tracking": int((st[warmup:] == TRACKING).sum()),
+            "n_timed": n - warmup, "first_tracking_frame": first,
+            "keyframes_after_first": int(meta[1:, 2].sum()),
+            "ate_unaligned_m": cs.unaligned_ate(est, g),
+            "ate_se3_m": float(ate_rmse(est, g, align="se3")[0]),
+            "traj_len_m": float(np.linalg.norm(np.diff(g, axis=0),
+                                               axis=-1).sum())}
+
+
 def stepwise(cam, imu) -> None:
     import torch
     from svo_pro_universal_tpu_torch import convert
@@ -234,7 +319,10 @@ def stepwise(cam, imu) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("phase", choices=("vio", "slam", "stepwise"))
+    ap.add_argument("phase", choices=("vio", "slam", "stepwise", "stereo",
+                                      "stereo_vio"))
+    ap.add_argument("--frames", type=int, default=cs.RIG_FRAMES)
+    ap.add_argument("--structure-pts", type=int, default=None)
     ap.add_argument("--solve", choices=("float32", "float64"),
                     default="float32")
     ap.add_argument("--no-zupt", action="store_true")
@@ -252,6 +340,17 @@ def main() -> None:
     t0 = time.time()
     if args.phase == "stepwise":
         stepwise(cam, imu)
+        return
+    if args.phase in ("stereo", "stereo_vio"):
+        out = stereo(args.phase, args.frames, args.structure_pts)
+        print(json.dumps({
+            "phase": args.phase, "solve": args.solve,
+            "zupt": not args.no_zupt, "structure_pts": args.structure_pts,
+            **out,
+            "lm_iterations": STEPS["iterations"],
+            "lm_zero_step_share": STEPS["zero"] / max(STEPS["iterations"],
+                                                      1),
+            "seconds": time.time() - t0}), flush=True)
         return
     if args.phase == "vio":
         n, warmup = cs.VIO_FRAMES, cs.VIO_WARMUP

@@ -77,3 +77,76 @@ def sequence(n_frames: int) -> list:
 def rotation_angle_deg(Ra: np.ndarray, Rb: np.ndarray) -> float:
     c = (np.trace(Ra.T @ Rb) - 1.0) / 2.0
     return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def rig_config():
+    """The stereo and array tests' config (tests/test_device_pipeline_
+    stereo.py:22-27): tests/test_pipeline_mono.py's, stereo depth range
+    0.5–10 m around 2 m."""
+    from test_pipeline_mono import make_config
+    cfg = make_config()
+    cfg.pipeline_is_stereo = True
+    cfg.stereo.mean_depth_inv = 1.0 / 2.0
+    cfg.stereo.min_depth_inv = 1.0 / 0.5
+    cfg.stereo.max_depth_inv = 1.0 / 10.0
+    return cfg
+
+
+def uint8_views(imgs) -> list:
+    """Rendered views as the uint8 frames both implementations are fed."""
+    return [np.clip(np.rint(np.asarray(im)), 0, 255).astype(np.uint8)
+            for im in imgs]
+
+
+def jax_trace_pose(worlds, k) -> np.ndarray:
+    """4×4 T_world_cam that the JAX run traced at frame k."""
+    jw = worlds[k + 1]
+    return convert.SE3(*(torch.from_numpy(np.array(jw[f][k]))
+                         for f in ("trace_q", "trace_t"))).as_matrix().numpy()
+
+
+def pose_gap(pipe, worlds, k) -> tuple[float, float]:
+    """(position gap m, rotation gap °) of the port's frame k to JAX's."""
+    T = pipe.world.last_frame.T_world_cam.as_matrix().numpy()
+    Tj = jax_trace_pose(worlds, k)
+    return (float(np.linalg.norm(T[:3, 3] - Tj[:3, 3])),
+            rotation_angle_deg(T[:3, :3], Tj[:3, :3]))
+
+
+def new_own_landmarks(frame, pool, next_id_before) -> int:
+    """Landmarks of ``frame`` (a dict of numpy arrays) created from its own
+    seeds in this step: the stereo/array triangulation's promotions (a
+    keyframe step's upgraded seeds belong to older keyframes)."""
+    lid = np.asarray(frame["landmark_id"])
+    ok = (lid >= 0) & (np.asarray(frame["seed_ref_kf"]) < 0)
+    ids = np.asarray(pool["ids"])[np.clip(lid, 0, None)]
+    ftype = np.asarray(frame["ftype"])
+    return int(np.sum(ok & (ids >= next_id_before) & (ftype >= 0)
+                      & (ftype < 11) & (ftype != 10)))
+
+
+def unaligned_ate(mats: np.ndarray, cam_poses_world_pos: np.ndarray
+                  ) -> tuple[float, float]:
+    """(metric ATE without alignment, path length) of estimated T_world_cam
+    ``mats`` [N,4,4] against ground-truth positions [N,3], both taken
+    relative to their first frame (tests/test_device_pipeline_stereo.py)."""
+    gt_rel = cam_poses_world_pos - cam_poses_world_pos[0]
+    est_rel = mats[:, :3, 3] - mats[0, :3, 3]
+    ate = float(np.sqrt(np.mean(np.sum((gt_rel - est_rel) ** 2, axis=-1))))
+    path = float(np.linalg.norm(np.diff(cam_poses_world_pos, axis=0),
+                                axis=-1).sum())
+    return ate, path
+
+
+def assert_tree_equal(a, b) -> None:
+    """``convert.to_numpy`` output ``a`` equals the JAX dict ``b``: arrays of
+    the same dtype and values, host scalars of the same value."""
+    if isinstance(b, dict):
+        for k in b:
+            assert_tree_equal(a[k], b[k])
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    if b.ndim == 0:
+        assert a == b
+    else:
+        assert a.dtype == b.dtype and np.array_equal(a, b)
