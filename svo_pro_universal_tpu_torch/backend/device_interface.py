@@ -148,6 +148,10 @@ class DeviceBackend:
         # those whose state step ``solve_schur`` voided (device, no read)
         self.lm_iterations = 0
         self.lm_voided = torch.zeros((), dtype=torch.long, device=self.device)
+        # the host API's window count and keyframe times
+        # (add_keyframe_device)
+        self.n_states = 0
+        self._ts: list[float] = []
         self.state = self._fresh_state()
 
     def _fresh_state(self) -> DeviceBackendState:
@@ -320,6 +324,17 @@ class DeviceBackend:
         raw = packed_raw_mask(packed_host)
         iw, steps = masked_window(packed, packed_host,
                                   raw & (packed_host[:, 0] > F32(rel_kf)))
+        return self._solve_step(st, k, dt_prev, ts, T_cam_world, lids,
+                                bearings, valid, pool_pos, iw, steps,
+                                packed, packed_host, use_imu, is_kf)
+
+    def _solve_step(self, st: DeviceBackendState, k: int, dt_prev, ts,
+                    T_cam_world: SE3, lids, bearings, valid, pool_pos,
+                    iw: ImuWindow, steps: Sequence[int],
+                    packed: torch.Tensor, packed_host: np.ndarray,
+                    use_imu: bool, is_kf: bool):
+        """``_step_program`` past the choice of the keyframe factor's
+        samples (``iw``, its ``steps``); the buffer reads ``packed``."""
         st = self._add_keyframe(st, k, dt_prev, T_cam_world, lids, bearings,
                                 valid, pool_pos, iw, use_imu, steps)
         w, _, n_void = wba.optimize(st.window, self.T_cam_body, self.focal,
@@ -534,3 +549,54 @@ class DeviceBackend:
         ring = insert_keyframe(ring._replace(frames=frames), frame,
                                ring.last_added)
         return ring, pool, frame, s, c
+
+    # ------------------------------------------------------------------
+    # host API (JAX device_interface.py:640-677)
+    # ------------------------------------------------------------------
+    def add_keyframe_device(self, timestamp: float, frame, pool,
+                            imu_handler=None):
+        """One keyframe step of the host handlers: marginalize when the
+        window is full, absorb ``frame`` (its pose, landmark ids, bearings
+        and ``pool``'s positions) with the IMU factor over
+        ``imu_handler.window_between`` since the previous keyframe,
+        optimize. Returns (T_cam_world_new, visual chi2), both on the
+        device; nothing is read back.
+
+        As in the JAX package, the window's times are relative to its first
+        sample (not to the frame), so the long-horizon alignment buffer
+        preintegrates nothing here and never fires (ROADMAP Queue 3: scale
+        transfer is disabled on the host path)."""
+        if self.n_states == self.S:
+            self.state = self._marginalize_program(self.state)
+            self.n_states -= 1
+            self._ts.pop(0)
+        k = self.n_states
+        dt_prev = (timestamp - self._ts[-1]) if self.n_states else 0.0
+        if imu_handler is not None and self.n_states:
+            w = imu_handler.window_between(self._ts[-1], timestamp)
+            packed_host = np.concatenate(
+                [w.t.numpy()[:, None], w.gyro.numpy(), w.acc.numpy(),
+                 w.valid.numpy()[:, None]], axis=1).astype(np.float32)
+            # no factor across a tracking outage (stale velocities)
+            use_imu = dt_prev < self.max_imu_gap
+        else:
+            m = getattr(imu_handler, "window_size", 16)
+            packed_host = np.zeros((m, 8), np.float32)
+            use_imu = False
+        packed = torch.from_numpy(packed_host)
+        if self.device.type == "cuda":
+            packed = packed.pin_memory().to(self.device, non_blocking=True)
+        iw, steps = masked_window(packed, packed_host,
+                                  packed_host[:, 7] > 0.5)
+        self.state, T_new, chi2 = self._solve_step(
+            self.state, k, F32(dt_prev), F32(timestamp), frame.T_cam_world,
+            frame.landmark_id, frame.f, frame.valid_mask(), pool.pos, iw,
+            steps, packed, packed_host, use_imu, False)
+        self.n_states += 1
+        self._ts.append(timestamp)
+        return T_new, chi2
+
+    def reset(self) -> None:
+        self.n_states = 0
+        self._ts = []
+        self.state = self._fresh_state()

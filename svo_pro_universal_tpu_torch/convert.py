@@ -237,3 +237,132 @@ def to_numpy(obj: Any) -> Any:
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return {k: to_numpy(v) for k, v in zip(obj._fields, obj)}
     return obj
+
+
+# ---------------------------------------------------------------------------
+# the host handlers' state: the JAX handler's attributes, as numpy, written
+# into a port handler (of the same configuration) on its device
+# ---------------------------------------------------------------------------
+
+def _opt(fn, v, device):
+    return None if v is None else fn(v, device)
+
+
+def host_mono(h, d: Mapping) -> None:
+    """Write a JAX ``FrameHandlerMono``'s state (``d``: its attributes by
+    name, arrays as numpy, NamedTuples as dicts, the stage as its value)
+    into the port handler ``h``: ring, pool, last frame, motion model,
+    depth scalars, stage and counters, and the initialization references.
+    The RANSAC generator is left as it is."""
+    from svo_pro_universal_tpu_torch.frontend.frame_handler import Stage
+    dev = h.device
+    h.ring = ring(d["ring"], dev)
+    h.pool = pool(d["pool"], dev)
+    h.last_frame = _opt(frame, d["last_frame"], dev)
+    h.T_rel_prev = se3(d["T_rel_prev"], dev)
+    h.depth_median = float(d["depth_median"])
+    h.depth_min = float(d["depth_min"])
+    h._depth_state = tensor(d["_depth_state"], dev)
+    h.stage = Stage(int(d["stage"]))
+    for k in ("frames_since_kf", "frame_count", "reloc_trials"):
+        setattr(h, k, int(d[k]))
+    for k in ("_prev_n_tracked",):
+        setattr(h, k, None if d.get(k) is None else int(d[k]))
+    h._last_ts = None if d.get("_last_ts") is None else float(d["_last_ts"])
+    h._init_ref_frame = _opt(frame, d.get("_init_ref_frame"), dev)
+    for k in ("_init_ref_px", "_init_ref_valid", "_init_px_guess"):
+        setattr(h, k, _opt(tensor, d.get(k), dev))
+
+
+def host_vio(h, d: Mapping) -> None:
+    """``host_mono`` plus the device backend: its state, window count and
+    keyframe times, and the last chi2."""
+    host_mono(h, d)
+    b = d["backend"]
+    h.backend.state = backend_state(b["state"], h.device)
+    h.backend.n_states = int(b["n_states"])
+    h.backend._ts = [float(t) for t in b["_ts"]]
+    c = d.get("_last_backend_chi2")
+    h._last_backend_chi2 = None if c is None else float(c)
+
+
+def host_stereo(h, d: Mapping) -> None:
+    """``host_mono`` plus cam1's current and previous pyramids (JAX
+    ``_pyr1``, ``_pyr1_last``)."""
+    host_mono(h, d)
+    h._pyrs_cur = (None if d.get("_pyr1") is None
+                   else [tensor(d["_pyr1"], h.device)])
+    h._pyrs_last = (None if d.get("_pyr1_last") is None
+                    else [tensor(d["_pyr1_last"], h.device)])
+
+
+def host_array(h, d: Mapping) -> None:
+    """``host_mono`` plus the secondary cameras' pyramids (JAX
+    ``_pyr_others``, ``_pyr_others_last``)."""
+    host_mono(h, d)
+    for src, dst in (("_pyr_others", "_pyrs_cur"),
+                     ("_pyr_others_last", "_pyrs_last")):
+        v = d.get(src)
+        setattr(h, dst, None if v is None
+                else [tensor(p, h.device) for p in v])
+
+
+def _id_dict(v: Mapping) -> dict:
+    return {int(k): int(x) for k, x in v.items()}
+
+
+def backend_interface(b, d: Mapping) -> None:
+    """A JAX ``BackendInterface``'s window, counts, keyframe times,
+    id↔slot dicts and cursors into the port's ``b``."""
+    b.window = window(d["window"], b.device)
+    b.n_states = int(d["n_states"])
+    b.kf_ts = [float(t) for t in d["kf_ts"]]
+    b.lid2slot = _id_dict(d["lid2slot"])
+    b.slot2lid = _id_dict(d["slot2lid"])
+    b._lm_cursor = int(d["_lm_cursor"])
+    b._obs_cursor = int(d["_obs_cursor"])
+
+
+def global_map(g, d: Mapping) -> None:
+    """A JAX ``GlobalMap``'s window, counts, keyframe ids, id↔slot dicts
+    and cursors into the port's ``g``."""
+    g.window = window(d["window"], g.device)
+    g.n_states = int(d["n_states"])
+    g.kf_ids = [int(k) for k in d["kf_ids"]]
+    g.lid2slot = _id_dict(d["lid2slot"])
+    g.slot2lid = _id_dict(d["slot2lid"])
+    g._lm_cursor = int(d["_lm_cursor"])
+    g._obs_cursor = int(d["_obs_cursor"])
+    g._since_opt = int(d["_since_opt"])
+
+
+def loop_closer(lc, d: Mapping) -> None:
+    """A JAX ``LoopClosing``'s database (snapshots, keyframe ids, the
+    descriptor matrix and counters) into the port's ``lc``."""
+    from svo_pro_universal_tpu_torch.backend.loop_closing import (
+        KeyframeSnapshot)
+    dev = lc.device
+    lc.snapshots = [KeyframeSnapshot(**{k: tensor(s[k], dev)
+                                        for k in KeyframeSnapshot._fields})
+                    for s in d["snapshots"]]
+    lc.kf_ids = [int(k) for k in d["kf_ids"]]
+    lc._n_added = int(d["_n_added"])
+    lc.n_evicted = int(d["n_evicted"])
+    lc._desc_matrix = tensor(d["_desc_matrix"], dev)
+
+
+def host_slam(h, d: Mapping) -> None:
+    """``host_mono`` plus the SLAM state: the pose graph and its node and
+    constraint counts, the node poses, the unique-id → pool-slot map, the
+    loop count, the loop closer's database and the global map."""
+    host_mono(h, d)
+    dev = h.device
+    h.graph = pose_graph(d["graph"], dev)
+    h._pgo_n = int(d["_pgo_n"])
+    h._pgo_c = int(d["_pgo_c"])
+    h._kf_poses = [se3(T, dev) for T in d["_kf_poses"]]
+    h._uid2slot = _id_dict(d["_uid2slot"])
+    h.n_loops_closed = int(d["n_loops_closed"])
+    loop_closer(h.loop_closer, d["loop_closer"])
+    if h.global_map is not None:
+        global_map(h.global_map, d["global_map"])

@@ -29,25 +29,23 @@ import numpy as np
 import torch
 
 from svo_pro_universal_tpu_torch.cameras import projections as proj
-from svo_pro_universal_tpu_torch.common import types as ft
 from svo_pro_universal_tpu_torch.common.frame import (
-    FrameState, frame_map, make_empty_frame)
+    FrameState, make_empty_frame)
 from svo_pro_universal_tpu_torch.common.point import (
-    LandmarkPool, add_observations, allocate, make_pool)
+    LandmarkPool, make_pool)
 from svo_pro_universal_tpu_torch.config import Config
 from svo_pro_universal_tpu_torch.frontend import initialization as init_mod
 from svo_pro_universal_tpu_torch.frontend.frame_handler import (
-    FrameHandlerMono, Stage, resolve_device)
+    N_HYPOTHESES, Stage, StagePrograms, is_keyframe)
+from svo_pro_universal_tpu_torch.frontend.frame_handler import (
+    zeroed_ring as _zeroed)
 from svo_pro_universal_tpu_torch.frontend.map import (
     KeyframeRing, closest_keyframe_slot, insert_keyframe, make_ring,
     ring_frame)
-from svo_pro_universal_tpu_torch.ops.detector import SUPPORTED_DETECTORS
 from svo_pro_universal_tpu_torch.ops.pyramid import (
     build_pyramid, image_to_float)
 from svo_pro_universal_tpu_torch.utils.transform import (
-    SE3, matrix_to_quat_np, quat_normalize, quat_to_matrix)
-
-N_HYPOTHESES = 128     # RANSAC hypotheses of the FivePoint bootstrap
+    SE3, matrix_to_quat_np, quat_normalize)
 
 
 class WorldState(NamedTuple):
@@ -71,35 +69,16 @@ class WorldState(NamedTuple):
     trace_ptr: int
 
 
-def _zeroed(ring: KeyframeRing) -> KeyframeRing:
-    zeros = torch.zeros_like
-    return KeyframeRing(frame_map(zeros, ring.frames), zeros(ring.valid),
-                        zeros(ring.last_added))
-
-
-class DevicePipelineMono(FrameHandlerMono):
+class DevicePipelineMono(StagePrograms):
     """Mono VO: one tracking step per frame, a keyframe step when the
     keyframe policy fires, OneShot or FivePoint initialization."""
 
     def __init__(self, cfg: Config, cam: proj.Camera,
                  T_cam_body: Optional[SE3] = None, seed: int = 0,
                  imu_handler=None, trace_capacity: int = 8192, device=None):
-        if cfg.detector.detector_type not in SUPPORTED_DETECTORS:
-            raise NotImplementedError(
-                f"detector_type {cfg.detector.detector_type!r}: the port "
-                "runs 'fast_grad'; the other detectors are a later slice")
-        dev = resolve_device(device)
-        if dev.type == "cuda":
-            # the dense ZMSSD scan is a cuDNN depthwise conv; TF32 there
-            # (cuDNN's default) flips argmin near-ties, so keep full f32
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-        super().__init__(cfg, cam, T_cam_body=T_cam_body, device=dev)
+        super().__init__(cfg, cam, T_cam_body=T_cam_body, device=device)
         self.seed = seed
         self.imu = imu_handler
-        Tcb = T_cam_body if T_cam_body is not None else SE3.identity()
-        self._R_cam_body_np = quat_to_matrix(
-            Tcb.q.detach().cpu()).numpy().astype(np.float64)
         self._last_ts: Optional[float] = None
         self.trace_capacity = trace_capacity
         self._t_epoch: Optional[float] = None
@@ -110,11 +89,6 @@ class DevicePipelineMono(FrameHandlerMono):
         if self._t_epoch is None:
             self._t_epoch = float(timestamp)
         return float(timestamp) - self._t_epoch
-
-    def _template(self) -> FrameState:
-        pyr = build_pyramid(torch.zeros((self.cam.height, self.cam.width),
-                                        device=self.device), self.n_levels)
-        return make_empty_frame(pyr, self.max_fts, T_cam_body=self.T_cam_body)
 
     def _make_world(self) -> WorldState:
         cap = self.cfg.capacity
@@ -173,30 +147,18 @@ class DevicePipelineMono(FrameHandlerMono):
             (), enough, dtype=torch.bool, device=self.device))
         if not enough:
             return world._replace(last_frame=frame), n_new, False
-        zero = torch.zeros((), dtype=torch.long, device=self.device)
         if cfg.init.init_method != "OneShot":
             # FivePoint: the first keyframe; KLT tracks from it until the
             # two-view bootstrap succeeds
+            zero = torch.zeros((), dtype=torch.long, device=self.device)
             world = world._replace(
                 stage=Stage.INITIALIZING.value,
                 ring=insert_keyframe(world.ring, frame, zero),
                 last_frame=frame, init_ref=frame, init_px=frame.px)
             return world, n_new, True
-        # constant-depth bootstrap (reference: OneShotInit)
-        valid = frame.valid_mask()
-        pts_w = frame.T_world_cam.apply(frame.f
-                                        * cfg.init.expected_avg_depth)
-        pool, slots = allocate(world.pool, pts_w, valid)
-        pool = add_observations(
-            pool, slots, torch.zeros_like(slots),
-            torch.arange(self.max_fts, device=self.device), valid)
-        fr = frame._replace(
-            landmark_id=torch.where(valid, slots, -1),
-            ftype=torch.where(valid, int(ft.FeatureType.CORNER),
-                              frame.ftype))
+        ring, pool, fr = self._oneshot_keyframe(world.ring, world.pool, frame)
         world = world._replace(
-            stage=Stage.TRACKING.value,
-            ring=insert_keyframe(world.ring, fr, zero), pool=pool,
+            stage=Stage.TRACKING.value, ring=ring, pool=pool,
             last_frame=fr, T_rel_prev=SE3.identity(device=self.device),
             frames_since_kf=0)
         return world, n_new, True
@@ -240,50 +202,16 @@ class DevicePipelineMono(FrameHandlerMono):
             return world._replace(last_frame=frame), n_ok, False
 
         med = cfg.init.expected_avg_depth
-        inl = ok & res.inliers & (depths > 0.1 * med) & (depths < 5.0 * med)
-        pts_w = ref.f * depths[:, None]
-        pool, slots = allocate(world.pool, pts_w, inl)
-        idx = torch.arange(self.max_fts, device=dev)
-        pool = add_observations(pool, slots, torch.zeros_like(idx), idx, inl)
-        pool = add_observations(pool, slots, torch.ones_like(idx), idx, inl)
-        corner = int(ft.FeatureType.CORNER)
-        ref_upd = ref._replace(
-            landmark_id=torch.where(inl, slots, -1),
-            ftype=torch.where(inl, corner, ref.ftype))
-        ring = insert_keyframe(world.ring, ref_upd,
-                               torch.zeros((), dtype=torch.long, device=dev))
-        fr = frame._replace(
-            T_cam_world=T_cur_ref.compose(ref.T_cam_world),
-            px=px_cur, f=f_cur, grad=ref.grad, level=ref.level,
-            ftype=torch.where(inl, corner, int(ft.FeatureType.INVALID)),
-            landmark_id=torch.where(inl, slots, -1),
-            is_keyframe=torch.ones((), dtype=torch.bool, device=dev))
         d0 = torch.tensor([med, 0.1 * med], dtype=torch.float32, device=dev)
-        fr, _ = self._detect_into_frame(fr, d0)
-        ring = insert_keyframe(ring, fr,
-                               torch.ones((), dtype=torch.long, device=dev))
+        ring, pool, fr = self._two_view_keyframes(
+            world.ring, world.pool, ref, frame, px_cur, f_cur,
+            ok & res.inliers, T_cur_ref, depths, d0)
         world = world._replace(
             stage=Stage.TRACKING.value, ring=ring, pool=pool, last_frame=fr,
             init_ref=fr,        # drop the stale reference
             T_rel_prev=SE3.identity(device=dev), depth_state=d0,
             frames_since_kf=0)
         return world, n_ok, True
-
-    def _is_keyframe(self, world: WorldState, n_tracked: int,
-                     med_disp: float, too_close: bool) -> bool:
-        """Keyframe decision (reference needNewKf :1012-1121) on host
-        values."""
-        b = self.cfg.base
-        is_kf = n_tracked <= b.kfselect_numkfs_upper_thresh
-        is_kf &= world.frames_since_kf >= b.kfselect_min_num_frames_between_kfs
-        need_more = n_tracked < b.kfselect_numkfs_lower_thresh
-        gates = True
-        if b.kfselect_min_disparity > 0:
-            gates &= not (np.isfinite(med_disp)
-                          and med_disp < np.float32(b.kfselect_min_disparity))
-        gates &= not too_close
-        is_kf &= need_more or gates
-        return is_kf and n_tracked >= b.quality_min_fts
 
     def _branch_tracking(self, world: WorldState, frame: FrameState,
                          ts: float, T_prior_rel: SE3):
@@ -295,8 +223,8 @@ class DevicePipelineMono(FrameHandlerMono):
             stats["n_tracked"].float(), stats["med_disparity"],
             stats["kf_too_close"].float()]).tolist()   # the frame's one read
         n_tracked = int(n_tracked)
-        is_kf = self._is_keyframe(world, n_tracked, med_disp,
-                                  bool(too_close))
+        is_kf = is_keyframe(cfg.base, world.frames_since_kf, n_tracked,
+                            med_disp, bool(too_close))
         if is_kf:
             ring, pool, tracked, _, _ = self._keyframe_step(
                 ring, pool, tracked, world.depth_state)
@@ -380,28 +308,6 @@ class DevicePipelineMono(FrameHandlerMono):
         if T_prior_rel is None:
             T_prior_rel = world.T_rel_prev
         return self._run_state_machine(world, frame, ts, T_prior_rel)
-
-    def _upload(self, img, aux: np.ndarray
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The frame's one host→device copy: ``aux`` (float32) then the
-        image bytes (uint8 or float32; one image, or the rig's stacked) in
-        one buffer, pinned and copied asynchronously on the card. Returns
-        (image, aux) views on the device."""
-        arr = np.ascontiguousarray(np.asarray(img))
-        if arr.dtype not in (np.uint8, np.float32):
-            arr = arr.astype(np.float32)
-        buf = np.concatenate([aux.view(np.uint8), arr.reshape(-1).view(
-            np.uint8)])
-        host = torch.from_numpy(buf)
-        if self.device.type == "cuda":
-            dev = host.pin_memory().to(self.device, non_blocking=True)
-        else:
-            dev = host
-        n = aux.nbytes
-        aux_d = dev[:n].view(torch.float32)
-        img_d = dev[n:].view(torch.uint8 if arr.dtype == np.uint8
-                             else torch.float32).reshape(arr.shape)
-        return img_d, aux_d
 
     def _motion_prior(self, timestamp: float) -> SE3:
         """Constant-velocity translation with, given an IMU, the gyro

@@ -32,17 +32,15 @@ import numpy as np
 import torch
 
 from svo_pro_universal_tpu_torch.cameras import projections as proj
-from svo_pro_universal_tpu_torch.common.frame import (
-    FrameState, make_empty_frame)
+from svo_pro_universal_tpu_torch.common.frame import make_empty_frame
 from svo_pro_universal_tpu_torch.common.point import LandmarkPool
 from svo_pro_universal_tpu_torch.config import Config
 from svo_pro_universal_tpu_torch.frontend import stereo_triangulation as st
 from svo_pro_universal_tpu_torch.frontend.frame_handler import (
-    Stage, _feature_world_points, resolve_device)
+    Stage, resolve_device, secondary_align_inputs)
 from svo_pro_universal_tpu_torch.frontend.map import insert_keyframe
 from svo_pro_universal_tpu_torch.frontend.pipeline import (
     DevicePipelineMono, _zeroed)
-from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia_mod
 from svo_pro_universal_tpu_torch.ops.pyramid import (
     build_pyramid, image_to_float)
 from svo_pro_universal_tpu_torch.utils.transform import SE3
@@ -73,30 +71,6 @@ class WorldStateStereo(NamedTuple):
 
 def se3_to(T: SE3, device) -> SE3:
     return SE3(T.q.to(device), T.t.to(device))
-
-
-def secondary_align_inputs(ring, pool, last_frame: FrameState,
-                           cam_body: SE3, cams: Sequence[proj.Camera],
-                           T_c_c0: Sequence[SE3], pyr_last, pyr_cur
-                           ) -> list:
-    """One sparse-alignment ``CameraInput`` per secondary camera: cam0's
-    feature points projected into it at the last frame's pose, those in
-    front of it (z > 0.1) and inside its image valid, against its previous
-    (``pyr_last``) and current (``pyr_cur``) pyramids (JAX
-    frame_handler.py:1063-1086, 1184-1206). ``cam_body`` is cam0's
-    T_cam_body."""
-    xyz_w, has_pt = _feature_world_points(last_frame, ring, pool)
-    out = []
-    for cam, T, pl, pc in zip(cams, T_c_c0, pyr_last, pyr_cur):
-        p_c = T.compose(last_frame.T_cam_world).apply(xyz_w)
-        px, ok = proj.project(cam, p_c)
-        depth = torch.linalg.norm(p_c, dim=-1)
-        f = p_c / torch.clamp(depth[:, None], min=1e-9)
-        valid = last_frame.valid_mask() & has_pt & ok & (p_c[:, 2] > 0.1)
-        out.append(sia_mod.CameraInput(
-            pyr_ref=pl, pyr_cur=pc, px_ref=px, f_ref=f, depth_ref=depth,
-            valid=valid, T_cam_body=T.compose(cam_body), cam=cam))
-    return out
 
 
 class RigPipelineBase(DevicePipelineMono):

@@ -540,3 +540,74 @@ def tile_gather_mismatches(pyr: torch.Tensor, ring: torch.Tensor,
                 names + ["pyramid given", "ring given"], got, want)
                 if not torch.equal(a, b)]
     return bad
+
+
+# ---------------------------------------------------------------------------
+# tests/test_window_ba.py's visual-inertial states (the backend inputs of
+# tests/test_backend_interface.py), in float64 numpy
+# ---------------------------------------------------------------------------
+
+def _quat_mul_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    w1, x1, y1, z1 = a
+    w2, x2, y2, z2 = b
+    return np.array([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                     w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                     w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2])
+
+
+def _quat_rot_np(q: np.ndarray, v: np.ndarray) -> np.ndarray:
+    qv = np.concatenate([[0.0], v])
+    conj = q * np.array([1.0, -1.0, -1.0, -1.0])
+    return _quat_mul_np(_quat_mul_np(q, qv), conj)[1:]
+
+
+def vi_sequence(n_states: int = 5, state_dt: float = 0.2,
+                rate: float = 200.0) -> tuple[dict, list]:
+    """tests/test_window_ba.py's ``simulate_vi`` in float64: a body turning
+    and accelerating (gravity −9.81 z) integrated at ``rate`` with four
+    substeps. Returns (states {q [n, 4] wxyz T_world_body, p [n, 3],
+    v [n, 3], t [n]} every ``state_dt``, the IMU stream [(t, gyro,
+    specific force in the body frame)])."""
+    g = np.array([0.0, 0.0, -9.81])
+    dt = 1.0 / rate
+    n_total = int(n_states * state_dt * rate) + 1
+    q, v, p = np.array([1.0, 0.0, 0.0, 0.0]), np.zeros(3), np.zeros(3)
+    qs, vs, ps, stream = [q], [v], [p], []
+    for i in range(n_total):
+        t = i * dt
+        w = np.array([0.3 * np.sin(t), 0.2, -0.25 * np.cos(t)])
+        a_w = np.array([0.6 * np.cos(t), -0.4, 0.3 * np.sin(2 * t)])
+        conj = q * np.array([1.0, -1.0, -1.0, -1.0])
+        stream.append((t, w.astype(np.float32),
+                       _quat_rot_np(conj, a_w - g).astype(np.float32)))
+        for _ in range(4):
+            sdt = dt / 4
+            p = p + v * sdt + 0.5 * a_w * sdt * sdt
+            v = v + a_w * sdt
+            th = w * sdt
+            ang = np.linalg.norm(th)
+            dq = np.concatenate([[np.cos(ang / 2)],
+                                 np.sin(ang / 2) * th / max(ang, 1e-300)])
+            q = _quat_mul_np(q, dq)
+            q = q / np.linalg.norm(q)
+        qs.append(q)
+        vs.append(v)
+        ps.append(p)
+    per = int(state_dt * rate)
+    idx = [k * per for k in range(n_states)]
+    states = dict(q=np.stack([qs[i] for i in idx]),
+                  p=np.stack([ps[i] for i in idx]),
+                  v=np.stack([vs[i] for i in idx]),
+                  t=np.array([i * dt for i in idx]))
+    # the stream up to the last state, as the backend test feeds it
+    return states, [m for m in stream if m[0] <= states["t"][-1] + 1e-9]
+
+
+def quat_to_matrix_np(q: np.ndarray) -> np.ndarray:
+    """3×3 rotation of a unit quaternion (w, x, y, z), float64."""
+    w, x, y, z = np.asarray(q, np.float64)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])

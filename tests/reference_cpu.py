@@ -8,6 +8,8 @@ JAX.
     JAX_PLATFORMS=cpu python tests/reference_cpu.py stepwise
     JAX_PLATFORMS=cpu python tests/reference_cpu.py {stereo,stereo_vio}
         [--solve float64] [--no-zupt] [--frames N] [--structure-pts N]
+    JAX_PLATFORMS=cpu python tests/reference_cpu.py {host_vio,host_slam}
+        [--solve float64] [--no-zupt]
 
 `vio`: bench.py's mono_vio_degraded_imagery configuration on its degraded
 sphere scene (140 frames, degrade seed 7), fed one frame at a time; prints
@@ -41,6 +43,16 @@ unaligned and SE3 ATE, the zero-step share. `--structure-pts` sets the
 per-frame structure stage's point budget (JAX's stereo VIO keeps
 `cfg.base.structure_optimization_max_pts`, 20; JAX's mono device VIO sets
 0).
+
+`host_vio`, `host_slam`: the JAX package's host handlers on the inputs of
+chip_smoke's `host_vio` and `host_slam` phases: `FrameHandlerVIO` on the
+`vio` input (the IMU fed through `add_imu_measurement`), and
+`FrameHandlerSLAM` (mono, no IMU, `LoopClosingOptions` of
+`slam_options()`, the default `GlobalMapOptions`) on the `slam` input;
+one JSON line a frame (stage, tracked count, keyframe, backend chi2 or the
+pose-graph node count) and a summary line: TRACKING over the timed frames,
+Sim3 ATE, backend calls and the zero-step share, or loops, pose-graph
+nodes, global-map states, fixed landmarks.
 
 The configuration and the scene come from chip_smoke.py and the port's
 `testing.synthetic` (numpy frames rendered on the CPU). A full-width run
@@ -317,10 +329,70 @@ def stepwise(cam, imu) -> None:
         flush=True)
 
 
+def host(phase: str, cam, imu) -> dict:
+    """The JAX host handler of ``phase`` on chip_smoke's input, one JSON
+    line a frame; returns the summary."""
+    from svo_pro_universal_tpu.backend.loop_closing import LoopClosingOptions
+    from svo_pro_universal_tpu.frontend.frame_handler import FrameHandlerVIO
+    from svo_pro_universal_tpu.frontend.slam import FrameHandlerSLAM
+    if phase == "host_vio":
+        n, warmup = cs.VIO_FRAMES, cs.VIO_WARMUP
+        poses, frames, imu_meas = syn.bench_sequence(n, 7, "cpu")
+        h = FrameHandlerVIO(jax_config(), cam, imu_handler=imu,
+                            imu_params=ImuParams())
+    else:
+        n, warmup = syn.LOOP_FRAMES, cs.SLAM_WARMUP
+        poses, frames, imu_meas = syn.bench_sequence(
+            n, syn.LOOP_DEGRADE_SEED, "cpu", twist_fn=syn.loop_twist)
+        so = cs.slam_options()
+        h = FrameHandlerSLAM(jax_config(), cam, lc_opts=LoopClosingOptions(
+            min_temporal_gap=so.min_temporal_gap,
+            min_similarity=so.min_similarity, min_inliers=so.min_inliers))
+        imu_meas = []
+    i, mats, stages, n_kf = 0, [], [], 0
+    for t in range(n):
+        ts = t * syn.CAM_DT
+        while i < len(imu_meas) and imu_meas[i][0] <= ts:
+            h.add_imu_measurement(*imu_meas[i])
+            i += 1
+        res = h.add_image(np.asarray(frames[t]), ts)
+        mats.append(np.asarray(res.T_world_cam))
+        stages.append(res.stage.value)
+        n_kf += int(res.is_keyframe and t > 0)
+        rec = {"k": t, "stage": res.stage.value, "n_tracked": res.n_tracked,
+               "kf": int(res.is_keyframe)}
+        if phase == "host_vio":
+            rec |= {"backend_k": h.backend.n_states,
+                    "backend_chi2": h.stats.get("backend_chi2")}
+        else:
+            rec |= {"pgo_n": h._pgo_n, "loops": h.n_loops_closed}
+        print(json.dumps(rec), flush=True)
+    mats, st = np.stack(mats), np.asarray(stages)
+    first = int(np.argmax(st == TRACKING))
+    gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])[first:]
+    a3, al = ate_rmse(mats[first:, :3, 3], gt, align="sim3")
+    out = {"n_tracking": int((st[warmup:] == TRACKING).sum()),
+           "n_timed": n - warmup, "first_tracking_frame": first,
+           "keyframes_after_first": n_kf, "ate_m": float(a3),
+           "scale_error": abs(float(al.s) - 1.0),
+           "traj_len_m": float(np.linalg.norm(np.diff(gt, axis=0),
+                                              axis=-1).sum())}
+    if phase == "host_vio":
+        out |= {"backend_states": h.backend.n_states,
+                "backend_chi2": h.stats.get("backend_chi2")}
+    else:
+        gm = h.global_map
+        out |= {"n_loops_closed": h.n_loops_closed, "pgo_nodes": h._pgo_n,
+                "gm_states": len(gm),
+                "gm_landmarks": int(np.asarray(gm.window.lm_valid).sum()),
+                "fixed_landmarks": int(np.asarray(h.pool.fixed).sum())}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("phase", choices=("vio", "slam", "stepwise", "stereo",
-                                      "stereo_vio"))
+                                      "stereo_vio", "host_vio", "host_slam"))
     ap.add_argument("--frames", type=int, default=cs.RIG_FRAMES)
     ap.add_argument("--structure-pts", type=int, default=None)
     ap.add_argument("--solve", choices=("float32", "float64"),
@@ -341,8 +413,9 @@ def main() -> None:
     if args.phase == "stepwise":
         stepwise(cam, imu)
         return
-    if args.phase in ("stereo", "stereo_vio"):
-        out = stereo(args.phase, args.frames, args.structure_pts)
+    if args.phase in ("stereo", "stereo_vio", "host_vio", "host_slam"):
+        out = (host(args.phase, cam, imu) if args.phase.startswith("host")
+               else stereo(args.phase, args.frames, args.structure_pts))
         print(json.dumps({
             "phase": args.phase, "solve": args.solve,
             "zupt": not args.no_zupt, "structure_pts": args.structure_pts,

@@ -171,3 +171,37 @@ def test_segment_sum_is_bit_identical_on_the_card():
         dd, sd = data.cuda(), seg.cuda()
         for _ in range(5):
             assert torch.equal(segment_sum(dd, sd, n).cpu(), want)
+
+
+@pytest.mark.gpu
+def test_host_handler_runs_on_the_card():
+    """The host ``FrameHandlerMono`` (OneShot) for 8 frames of the textured
+    plane at 752×480 on the card and on the CPU: TRACKING throughout, one
+    read a frame, the same stages and keyframes, positions within 5 mm;
+    the tile gathers and align_level launched on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run on the card with `python -m "
+                    "pytest --noconftest tests/test_torch_gpu.py -m gpu`")
+    import chip_smoke as cs
+    from svo_pro_universal_tpu_torch.frontend.frame_handler import (
+        FrameHandlerMono, Stage)
+    from svo_pro_universal_tpu_torch.ops import _cuda
+    frames = [syn.render_textured_plane(cs.gt_pose(t), cs.INTR, cs.W, cs.H,
+                                        cs.PLANE_Z) for t in range(8)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        h = FrameHandlerMono(cs.euroc_config(),
+                             Camera.pinhole(*cs.INTR, cs.W, cs.H),
+                             device=dev)
+        _cuda.reset_counts()
+        out[dev] = [h.add_image(f, t * 0.05) for t, f in enumerate(frames)]
+        assert h.host_reads == len(frames)
+        if dev == "cuda":
+            launches = {k.name: k.launches for k in _cuda.KERNELS}
+            assert min(launches["gather_tiles"], launches["align_level"],
+                       launches["gather_tiles_ring"]) > 0, launches
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert g.stage == c.stage == Stage.TRACKING
+        assert g.is_keyframe == c.is_keyframe
+        assert np.linalg.norm(g.T_world_cam[:3, 3]
+                              - c.T_world_cam[:3, 3]) <= 5e-3

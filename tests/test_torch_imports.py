@@ -35,5 +35,6 @@ def test_port_imports_no_jax():
     # the walk found the port's pipelines, kernels and tests' helpers
     for name in ("frontend.pipeline_stereo", "frontend.pipeline_stereo_vio",
                  "frontend.pipeline_array", "ops.cuda_align",
-                 "testing.synthetic"):
+                 "testing.synthetic", "frontend.slam", "backend.interface",
+                 "backend.global_map"):
         assert f"svo_pro_universal_tpu_torch.{name}" in out["modules"]

@@ -150,3 +150,58 @@ def assert_tree_equal(a, b) -> None:
         assert a == b
     else:
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _tree(v):
+    """A JAX handler attribute as convert's input: NamedTuples as dicts,
+    arrays as numpy, lists and dicts kept, None and host scalars as they
+    are."""
+    if v is None or isinstance(v, (bool, int, float)):
+        return v
+    if hasattr(v, "_fields"):
+        return to_dict(v)
+    if isinstance(v, (list, tuple)):
+        return [_tree(x) for x in v]
+    if isinstance(v, dict):
+        return dict(v)
+    return np.asarray(v)
+
+
+_HOST_KEYS = ("ring", "pool", "last_frame", "T_rel_prev", "depth_median",
+              "depth_min", "_depth_state", "frames_since_kf", "frame_count",
+              "reloc_trials", "_prev_n_tracked", "_last_ts",
+              "_init_ref_frame", "_init_ref_px", "_init_ref_valid",
+              "_init_px_guess", "rng_key", "_pyr1", "_pyr1_last",
+              "_pyr_others", "_pyr_others_last", "_last_backend_chi2",
+              "graph", "_pgo_n", "_pgo_c", "_kf_poses", "_uid2slot",
+              "n_loops_closed")
+
+
+def jax_host_state(h) -> dict:
+    """A JAX host handler's state as the dict ``convert.host_*`` reads:
+    its attributes by name (those it has), the stage as its value, and the
+    backend, loop closer and global map as dicts of theirs."""
+    d = {k: _tree(getattr(h, k)) for k in _HOST_KEYS if hasattr(h, k)}
+    d["stage"] = h.stage.value
+    be = getattr(h, "backend", None)
+    if be is not None:
+        d["backend"] = {"state": to_dict(be.state),
+                        "n_states": be.n_states, "_ts": list(be._ts)}
+    if hasattr(h, "loop_closer"):
+        lc = h.loop_closer
+        d["loop_closer"] = {"snapshots": [to_dict(s) for s in lc.snapshots],
+                            "kf_ids": list(lc.kf_ids),
+                            "_n_added": lc._n_added,
+                            "n_evicted": lc.n_evicted,
+                            "_desc_matrix": np.asarray(lc._desc_matrix)}
+    if getattr(h, "global_map", None) is not None:
+        d["global_map"] = jax_map_state(h.global_map)
+    return d
+
+
+def jax_map_state(g) -> dict:
+    """A JAX GlobalMap's or BackendInterface's state as convert reads it."""
+    d = {k: _tree(getattr(g, k)) for k in (
+        "window", "n_states", "kf_ids", "kf_ts", "lid2slot", "slot2lid",
+        "_lm_cursor", "_obs_cursor", "_since_opt") if hasattr(g, k)}
+    return d
