@@ -10,8 +10,11 @@ loop closing, pose graph and global map: bench.py's second section) and the
 multi-camera pipelines (stereo VO, stereo VIO, a 3-camera array), then the
 host handlers a user calls (``FrameHandlerMono`` / ``VIO`` / ``Stereo`` /
 ``Array`` / ``SLAM``: ``add_image`` returns a ``FrameResult``) and the host
-backends (``BackendInterface``, ``GlobalMap``), all at EuRoC size, 752×480,
-with the capacities of bench.py:159-184. Phases, one JSON line each:
+backends (``BackendInterface``, ``GlobalMap``), then the entry points a user
+starts from (the EuRoC runners on ASL folders at EuRoC-epoch stamps,
+checkpoints), every detector and the edge-depth ops, all at EuRoC size,
+752×480, with the capacities of bench.py:159-184. Phases, one JSON line
+each:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA.
 2. build    every csrc/*.cu compiled with nvcc for sm_90a, in parallel.
@@ -120,8 +123,12 @@ with the capacities of bench.py:159-184. Phases, one JSON line each:
    host_mono  ``FrameHandlerMono`` on the slice's 40 frames: the slice's
             gates, stages and keyframes equal to the slice's
             ``DevicePipelineMono`` and every pose within 1e-4 m of it.
-   host_vio  ``FrameHandlerVIO`` on the vio phase's input and configuration
-            (the IMU through ``add_imu_measurement``, the backend's host
+   stage_profile  the trace tool ``utils.stage_profile.profile_frontend``
+            (CUDA events, 4 calls a stage) on host_mono's live state, and
+            ``roofline_summary``: every stage's ms finite and positive.
+   host_vio  ``FrameHandlerVIO`` on the vio phase's first 80 frames and its
+            configuration (the IMU through ``add_imu_measurement``, the
+            backend's host
             API ``add_keyframe_device`` on every keyframe): the vio gates
             (TRACKING on ≥ 90% of the timed frames and within the warm-up,
             backend ≥ 2 states with a finite chi2 > 0, Sim3 ATE < 0.15 ×
@@ -147,15 +154,57 @@ with the capacities of bench.py:159-184. Phases, one JSON line each:
             absorb-and-evict input, 40 keyframes through an 8-state ring)
             on the card and on the CPU: chi2, poses and landmarks within
             1e-3.
+   checkpoint  ``FrameHandlerMono`` on host_mono's input: 20 frames,
+            ``io.save_state``, a new handler, ``load_state``, 20 frames:
+            equal to host_mono's uninterrupted 40 to the bit.
+10. entry points (the runners' ``main`` called in-process; the PNG decoder
+            chosen once, ``png_decoder``: native when the C++ compiler
+            builds it with zlib, else numpy, printed):
+   euroc, euroc_device  the vio phase's first 80 frames written as an ASL
+            folder at EuRoC-epoch ns stamps (1403636579763555584 on) with
+            a calibration of bench.py's camera and IMU, through
+            ``run_euroc_vio.main`` with the vio configuration and
+            ``--results-dir``: the host ``FrameHandlerVIO`` and
+            ``--device-pipeline``; the vio gates (the Sim3 ATE from the
+            rpg summary), the TUM file equal to the poses returned, read ms
+            a frame; for the host run, its ATE and gap beside host_vio's
+            same frames at session stamps and the JAX package's on the CPU
+            at both, recorded.
+   euroc_mono  ``run_euroc_mono.main`` with examples/param/pinhole.yaml and
+            ``--trace-dir`` on the folder's first 60 frames: TRACKING within
+            the warm-up, a tracefile row a frame, the TUM file, the launch
+            gates; TRACKING after the bootstrap and the ATE are recorded
+            beside the JAX package's on the CPU (JAX_EUROC_MONO_CPU).
+   euroc_stereo  the rig input's first 40 frames as cam0/cam1 through
+            ``run_euroc_stereo.main`` (examples/param/euroc_stereo.yaml,
+            body at the IMU, and pinhole.yaml): host_stereo's gates on the
+            motion relative to the first frame.
+   detectors  every ``detector_type`` on bench.py's first frame, card
+            against CPU (the same cells, pixels, levels, types; scores
+            within 1e-4), card ms each; ``FrameHandlerMono`` with
+            ``shitomasi_grad`` on host_mono's first 20 frames, TRACKING on
+            every frame, the launch gates.
+   edge_depth  ``detect_edges`` on bench.py's first frame and
+            ``refine_depth_photometric`` of its 512 strongest edge pixels
+            into the second, card against CPU (levels, response 1e-3,
+            converged sets, depths 1e-3), one gather_tiles launch per GN
+            iteration.
 
 The ``kernels`` line's ``launches`` are the vio run's, counted from 0 just
 before it (``launches_mono_slice``: the slice run's; ``launches_slam``,
 ``launches_stereo``, ``launches_stereo_vio``, ``launches_array``,
 ``launches_host_mono``, ``launches_host_vio``, ``launches_host_slam``,
-``launches_host_stereo``, ``launches_host_array``: those runs').
-``python3 chip_smoke.py --only host_vio,host_slam,...`` runs just the named
-host phases after the build (a development call: no kernels or result
-line).
+``launches_host_stereo``, ``launches_host_array``, ``launches_checkpoint``,
+``launches_euroc``, ``launches_euroc_device``, ``launches_euroc_mono``,
+``launches_euroc_stereo``, ``launches_detectors``,
+``launches_edge_depth``: those runs').
+``python3 chip_smoke.py --only host_vio,euroc,detectors,...`` runs just the
+named host and entry-point phases (host_mono, checkpoint, host_vio,
+host_vio_epoch, host_slam, host_stereo, host_array, host_backends, euroc,
+euroc_mono, euroc_stereo, detectors, edge_depth) after the build (a
+development call: no kernels or result line; ``host_vio_epoch``, host_vio
+at EuRoC-epoch stamps, and ``epoch_effect``, its gap to host_vio a frame,
+run only there).
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Needs one CUDA card; imports nothing of JAX.
@@ -166,12 +215,15 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from svo_pro_universal_tpu_torch import io as sio
+from svo_pro_universal_tpu_torch import native_loader
 from svo_pro_universal_tpu_torch.backend import loop_closing as lc_mod
 from svo_pro_universal_tpu_torch.backend import pgo as pgo_mod
 from svo_pro_universal_tpu_torch.backend.global_map import (
@@ -180,9 +232,11 @@ from svo_pro_universal_tpu_torch.backend.interface import BackendInterface
 from svo_pro_universal_tpu_torch.backend.window_ba import BAOptions
 from svo_pro_universal_tpu_torch.cameras.projections import (
     Camera, DistortionModel, ProjectionModel)
-from svo_pro_universal_tpu_torch.cameras.rig import ImuParams
+from svo_pro_universal_tpu_torch.cameras import projections as proj
+from svo_pro_universal_tpu_torch.cameras.rig import ImuParams, load_rig_yaml
 from svo_pro_universal_tpu_torch.config import Config
-from svo_pro_universal_tpu_torch.evaluation import ate_rmse
+from svo_pro_universal_tpu_torch.evaluation import (
+    ate_rmse, load_trajectory_tum)
 from svo_pro_universal_tpu_torch.frontend.frame_handler import (
     FrameHandlerArray, FrameHandlerMono, FrameHandlerStereo, FrameHandlerVIO,
     Stage)
@@ -200,13 +254,22 @@ from svo_pro_universal_tpu_torch.frontend.pipeline_vio import (
     DevicePipelineVIO)
 from svo_pro_universal_tpu_torch.frontend.slam import FrameHandlerSLAM
 from svo_pro_universal_tpu_torch.ops import _cuda, cuda_align, cuda_tiles
+from svo_pro_universal_tpu_torch.ops import detector as det_mod
+from svo_pro_universal_tpu_torch.ops import edge_depth, interp
 from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
 from svo_pro_universal_tpu_torch.ops import tiles
+from svo_pro_universal_tpu_torch.ops.pyramid import (
+    build_pyramid, image_to_float, level_view)
+from svo_pro_universal_tpu_torch.runners import (
+    run_euroc_mono, run_euroc_stereo, run_euroc_vio)
+from svo_pro_universal_tpu_torch.testing import asl
 from svo_pro_universal_tpu_torch.testing import gather_shapes as gs
 from svo_pro_universal_tpu_torch.testing import synthetic as syn
+from svo_pro_universal_tpu_torch.utils import stage_profile
 from svo_pro_universal_tpu_torch.utils.transform import (
     SE3, matrix_to_quat, se3_exp)
 
+ROOT = Path(__file__).resolve().parent
 W, H = 752, 480
 INTR = (460.0, 460.0, 376.0, 240.0)
 PLANE_Z = 2.5
@@ -309,7 +372,7 @@ def bench_gathers() -> list[dict]:
 
 
 def gather_cases(bw: float, cases: list) -> dict:
-    """Both gathers at the ten shapes of the path, on gather_bench.py's
+    """Both gathers at the eleven shapes of the path, on gather_bench.py's
     inputs (gather_shapes.path_inputs, same seed): one extract_tiles /
     extract_tiles_ring call (centres mode) against extract_tiles_plain and
     the origins-given gather against gather_tiles_plain, torch.equal; the
@@ -823,7 +886,8 @@ def determinism_check(smi: str, run: VioRun, first: np.ndarray,
 def vio_phase(smi: str) -> dict:
     """bench.py's mono VIO on the card: 20 warm-up frames (bootstrap and
     first keyframes), 120 timed frames in three chunks; accuracy against
-    the ground truth; the gates. Returns the launch counts of the run."""
+    the ground truth; the gates. Returns the launch counts, the input and
+    the pose trace of the run."""
     cam = Camera.pinhole(*syn.BENCH_INTRINSICS, syn.BENCH_W, syn.BENCH_H)
     t0 = time.perf_counter()
     poses, frames, imu_meas = syn.bench_sequence(VIO_FRAMES, 7, "cuda")
@@ -1529,17 +1593,25 @@ def slam_loop_parts(smi: str, pipe, first_cand: list) -> None:
 HOST_STAGES = STAGES + ("_process_init", "_klt_track")
 HOST_BACKEND = ("add_keyframe_device", "_apply_program")
 HOST_VIO_CPU_TRACKING = 2          # tracking frames after the bootstrap
+HOST_VIO_FRAMES = 80               # the vio input's first 80 (cut from 140:
+#                                    the euroc phase reruns them at epoch
+#                                    stamps through the runner)
 HOST_MONO_TOL = 1e-4               # m: host vs device mono path
+PROFILE_REPS = 4                   # stage_profile calls a stage (+1 warm-up)
 HOST_STEREO_FRAMES = 60
 HOST_ARRAY_FRAMES = 40
 HOST_RIG_WARMUP = 10
 HOST_SLAM_LC = dict(min_temporal_gap=6, min_similarity=0.75, min_inliers=15)
 HOST_BACKEND_TOL = 1e-3            # card vs CPU: chi2 (relative), m
 # the JAX package's host handlers on the CPU, same inputs
-# (tests/reference_cpu.py host_vio / host_slam, float32 as it ships)
-JAX_HOST_VIO_CPU = {"n_tracking": "120/120", "keyframes_after_first": 12,
-                    "ate_m": 0.0303, "scale_error": 0.2357,
-                    "lm_zero_step_share": 0.97}
+# (tests/reference_cpu.py host_vio --frames 80 [--epoch] / host_slam,
+# float32 as it ships; ate_m is the Sim3 ATE from the first TRACKING frame)
+JAX_HOST_VIO_CPU = {"frames": 80, "n_tracking": "60/60",
+                    "keyframes_after_first": 7, "ate_m": 0.0311,
+                    "scale_error": 0.3763, "lm_zero_step_share": 0.94}
+JAX_HOST_VIO_EPOCH_CPU = {"frames": 80, "n_tracking": "60/60",
+                          "keyframes_after_first": 5, "ate_m": 0.0177,
+                          "scale_error": 0.3678, "lm_zero_step_share": 1.0}
 JAX_HOST_SLAM_CPU = {"n_tracking": "144/144", "pgo_nodes": 4,
                      "n_loops_closed": 0, "gm_states": 4,
                      "fixed_landmarks": 157, "ate_m": 0.0057}
@@ -1547,13 +1619,15 @@ JAX_HOST_SLAM_CPU = {"n_tracking": "144/144", "pgo_nodes": 4,
 
 class HostRun:
     """A host handler fed like VioRun: the IMU up to each frame's time
-    (through ``add_imu_measurement``), then the frame through ``add``;
-    keeps every FrameResult."""
+    (through ``add_imu_measurement``), then the frame through ``add``, every
+    stamp offset by ``t0`` s; keeps every FrameResult."""
 
-    def __init__(self, handler, add, imu_meas: list, device):
+    def __init__(self, handler, add, imu_meas: list, device,
+                 t0: float = 0.0):
         self.h = handler
         self.add = add
         self.imu_meas = imu_meas
+        self.t0 = t0
         self.i_imu = 0
         self.device = torch.device(device)
         self.results: list = []
@@ -1563,10 +1637,11 @@ class HostRun:
             ts = t * syn.CAM_DT
             while (self.i_imu < len(self.imu_meas)
                    and self.imu_meas[self.i_imu][0] <= ts):
-                self.h.add_imu_measurement(*self.imu_meas[self.i_imu])
+                tm, g, a = self.imu_meas[self.i_imu]
+                self.h.add_imu_measurement(self.t0 + tm, g, a)
                 self.i_imu += 1
             c0 = time.perf_counter()
-            self.results.append(self.add(inputs[t], ts))
+            self.results.append(self.add(inputs[t], self.t0 + ts))
             if self.device.type == "cuda":
                 torch.cuda.synchronize()
             if wall is not None:
@@ -1580,10 +1655,11 @@ class HostRun:
                 np.array([bool(x.is_keyframe) for x in r]))
 
 
-def host_vio_run(cam: Camera, cfg: Config, imu_meas: list, device) -> HostRun:
+def host_vio_run(cam: Camera, cfg: Config, imu_meas: list, device,
+                 t0: float = 0.0) -> HostRun:
     h = FrameHandlerVIO(cfg, cam, imu_handler=ImuHandler(ImuParams()),
                         imu_params=ImuParams(), device=device)
-    return HostRun(h, h.add_image, imu_meas, device)
+    return HostRun(h, h.add_image, imu_meas, device, t0)
 
 
 def per_call(events: list) -> dict:
@@ -1641,15 +1717,19 @@ def launch_gates(label: str, counts: dict, stage_ms: dict, cfg: Config,
         fail(f"{label}: launches {counts} for {n_align} sparse alignments")
 
 
-def host_vio_phase(smi: str, poses: list, frames: list,
-                   imu_meas: list) -> dict:
+def host_vio_phase(smi: str, poses: list, frames: list, imu_meas: list,
+                   t0: float = 0.0) -> dict:
     """``FrameHandlerVIO`` at the vio phase's configuration on its input
-    (140 frames, 20 warm-up, the IMU through add_imu_measurement); the vio
-    phase's gates; then the bootstrap + 2 frames on the CPU
-    (``host_vio_cpu``). Returns the launch counts of the card run."""
+    (the first 80 frames, 20 warm-up, the IMU through add_imu_measurement,
+    stamps offset by ``t0``: ``host_vio_epoch`` with EuRoC's, a development
+    phase of ``--only``); the vio phase's gates; then the bootstrap + 2
+    frames on the CPU (``host_vio_cpu``). Returns the launch counts and
+    the card run's pose trace and Sim3 ATE from the first TRACKING
+    frame."""
+    label = "host_vio_epoch" if t0 else "host_vio"
     cam = Camera.pinhole(*syn.BENCH_INTRINSICS, syn.BENCH_W, syn.BENCH_H)
     cfg = vio_config()
-    run = host_vio_run(cam, cfg, imu_meas, "cuda")
+    run = host_vio_run(cam, cfg, imu_meas, "cuda", t0)
     h = run.h
     events: list = []
     time_methods(h, HOST_STAGES, events)
@@ -1660,18 +1740,18 @@ def host_vio_phase(smi: str, poses: list, frames: list,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_counts()
-    wall, chunk_fps = timed_run(run, frames, VIO_FRAMES, VIO_WARMUP)
+    wall, chunk_fps = timed_run(run, frames, HOST_VIO_FRAMES, VIO_WARMUP)
     counts = {k.name: k.launches for k in _cuda.KERNELS}
     torch.cuda.synchronize()
     stage_ms = per_call(events)
     mats, stages, _ = run.trace()
     tracking = stages == Stage.TRACKING.value
     first_track = int(np.argmax(tracking)) if tracking.any() else -1
-    n_timed = VIO_FRAMES - VIO_WARMUP
+    n_timed = HOST_VIO_FRAMES - VIO_WARMUP
     n_tracking = int(tracking[VIO_WARMUP:].sum())
     chi2 = h.stats.get("backend_chi2", float("nan"))
     be = h.backend
-    line = {"phase": "host_vio", "card": smi,
+    line = {"phase": label, "card": smi, "first_stamp_s": t0,
             "handler": "FrameHandlerVIO",
             "config": "mono_vio_degraded_imagery",
             "resolution": [syn.BENCH_W, syn.BENCH_H],
@@ -1685,9 +1765,11 @@ def host_vio_phase(smi: str, poses: list, frames: list,
             "backend_lm_voided_share": (int(be.lm_voided)
                                         / max(be.lm_iterations, 1)),
             "gather_launches_in_init_frames": init_gathers,
-            "jax_host_reference_cpu": JAX_HOST_VIO_CPU}
+            "jax_host_reference_cpu": (JAX_HOST_VIO_EPOCH_CPU if t0
+                                       else JAX_HOST_VIO_CPU)}
     if first_track >= 0:
-        gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])
+        gt = np.stack([np.linalg.inv(T)[:3, 3]
+                       for T in poses[:HOST_VIO_FRAMES]])
         ep, g = mats[first_track:, :3, 3], gt[first_track:]
         ate, a3 = ate_rmse(ep, g, align="sim3")
         line |= {"ate_m": ate, "ate_se3_m": ate_rmse(ep, g, align="se3")[0],
@@ -1696,35 +1778,35 @@ def host_vio_phase(smi: str, poses: list, frames: list,
                                                     axis=-1).sum())}
     emit(line)
     if n_tracking < 0.9 * n_timed:
-        fail(f"host_vio: TRACKING on {n_tracking}/{n_timed} timed frames")
+        fail(f"{label}: TRACKING on {n_tracking}/{n_timed} timed frames")
     if not 0 <= first_track < VIO_WARMUP:
-        fail(f"host_vio: TRACKING first reached at frame {first_track}")
+        fail(f"{label}: TRACKING first reached at frame {first_track}")
     if not (np.isfinite(chi2) and chi2 > 0 and be.n_states >= 2):
-        fail(f"host_vio: backend {be.n_states} states, chi2 {chi2}")
+        fail(f"{label}: backend {be.n_states} states, chi2 {chi2}")
     if not (np.isfinite(mats).all()
             and line["ate_m"] < 0.15 * line["traj_len_m"]):
-        fail(f"host_vio: Sim3 ATE {line.get('ate_m')} m over "
+        fail(f"{label}: Sim3 ATE {line.get('ate_m')} m over "
              f"{line.get('traj_len_m')} m")
     if not init_gathers or min(init_gathers) <= 0:
-        fail(f"host_vio: gather_tiles launches in the init frames "
+        fail(f"{label}: gather_tiles launches in the init frames "
              f"{init_gathers}")
-    launch_gates("host_vio", counts, stage_ms, cfg)
+    launch_gates(label, counts, stage_ms, cfg)
 
     # ---- the bootstrap + 2 frames on the CPU ---------------------------
     n_cpu = first_track + 1 + HOST_VIO_CPU_TRACKING
-    cpu = host_vio_run(cam, cfg, imu_meas, "cpu")
+    cpu = host_vio_run(cam, cfg, imu_meas, "cpu", t0)
     c0 = time.perf_counter()
     cpu.feed(frames, 0, n_cpu)
     cmats, cstages, _ = cpu.trace()
     gap = np.linalg.norm(cmats[:, :3, 3] - mats[:n_cpu, :3, 3], axis=-1)
     same = bool((cstages == stages[:n_cpu]).all())
-    emit({"phase": "host_vio_cpu", "card": smi, "frames": n_cpu,
+    emit({"phase": f"{label}_cpu", "card": smi, "frames": n_cpu,
           "max_pos_gap_m": float(gap.max()), "stages_equal": same,
           "stages": cstages.tolist(), "cpu_s": time.perf_counter() - c0})
     if gap.max() > POSE_TOL_M or not same:
-        fail(f"host_vio: card and CPU disagree: gap {gap.max()} m, stages "
+        fail(f"{label}: card and CPU disagree: gap {gap.max()} m, stages "
              f"{cstages.tolist()} vs {stages[:n_cpu].tolist()}")
-    return counts
+    return counts, (mats, line["ate_m"])
 
 
 def host_mono_phase(smi: str, frames: list, slice_mats: np.ndarray,
@@ -1733,7 +1815,7 @@ def host_mono_phase(smi: str, frames: list, slice_mats: np.ndarray,
     slice's gates, and every pose within HOST_MONO_TOL of the slice's
     ``DevicePipelineMono`` (the JAX package's two mono paths agree within
     1e-4 m on the CPU: tests/test_torch_host_reloc.py). Returns the
-    launch counts."""
+    launch counts and the run's (poses, stages, keyframe flags)."""
     cam = Camera.pinhole(*INTR, W, H)
     cfg = euroc_config()
     h = FrameHandlerMono(cfg, cam, device="cuda")
@@ -1763,7 +1845,27 @@ def host_mono_phase(smi: str, frames: list, slice_mats: np.ndarray,
         fail(f"host_mono: {gap.max()} m from the slice's DevicePipelineMono"
              f", stages/keyframes equal {same}")
     launch_gates("host_mono", counts, stage_ms, cfg)
-    return counts
+    stage_profile_step(smi, h)
+    return counts, (mats, stages, kf)
+
+
+def stage_profile_step(smi: str, h) -> None:
+    """The trace tool on the card: ``utils.stage_profile.profile_frontend``
+    (CUDA events, PROFILE_REPS calls a stage) on ``h``'s live state after
+    its run, and ``roofline_summary`` at the H100's memory rate; every
+    stage's ms finite and positive, both image-touching stages bounded."""
+    prof = stage_profile.profile_frontend(h, h.ring, h.pool, h.last_frame,
+                                          h._depth_state, reps=PROFILE_REPS)
+    roof = stage_profile.roofline_summary(prof, H, W, h.n_levels)
+    emit({"phase": "stage_profile", "card": smi, "handler": type(h).__name__,
+          "reps": PROFILE_REPS, "stage_ms": prof, "roofline": roof})
+    bad = {k: v for k, v in prof.items() if not (np.isfinite(v) and v > 0)}
+    if bad or len(prof) != 8:
+        fail(f"stage_profile: stage ms {prof}")
+    if set(roof) != {"pyramid_creation", "sparse_img_align"} or not all(
+            np.isfinite(r["x_from_roof"]) and r["x_from_roof"] > 0
+            for r in roof.values()):
+        fail(f"stage_profile: roofline {roof}")
 
 
 def host_rig_phase(smi: str, kind: str, cams: list, T_body_cams: list,
@@ -2089,16 +2191,641 @@ def host_backends_phase(smi: str) -> None:
         fail(f"host_backends: card and CPU disagree: {held}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the user's entry points (runners, loader, checkpoints), every
+# detector, edge depth
+# ---------------------------------------------------------------------------
+
+EUROC_T0_NS = asl.EUROC_T0_NS      # EuRoC MH_01's first camera stamp
+EUROC_FRAMES = 80                  # the vio input's first 80 frames
+EUROC_WARMUP = 20
+EUROC_MONO_FRAMES = 60
+EUROC_STEREO_FRAMES = 40
+EUROC_STEREO_WARMUP = 10
+PINHOLE_YAML = ROOT / "examples" / "param" / "pinhole.yaml"
+EUROC_STEREO_YAML = ROOT / "examples" / "param" / "euroc_stereo.yaml"
+TUM_TOL = 1e-6                     # TUM file vs poses: %.6f m rounds by
+#                                    5e-7; epoch seconds in float64 by 2.4e-7
+CHECKPOINT_FRAMES = 20
+DETECTOR_FRAMES = 20
+DETECTOR_RTOL = 1e-4               # scores, card vs CPU, relative
+EDGE_FEATURES = 512
+EDGE_ITERS = 10
+EDGE_TOL = 1e-3                    # edge response and depth, relative
+# the JAX package on the CPU, same input and configuration
+# (tests/reference_cpu.py euroc_mono): initializing 8 frames, TRACKING 2,
+# then relocalizing to the end
+JAX_EUROC_MONO_CPU = {"frames": 60, "first_tracking_frame": 8,
+                      "n_tracking_after_warmup": 0,
+                      "relocalizing_frames": 50}
+
+
+def choose_png_decoder(smi: str) -> str:
+    """The native PNG decoder when the local C++ compiler builds it
+    with zlib (``native_loader.toolchain_check``), else the numpy decoder:
+    chosen here once, explicitly, and printed."""
+    ok, log = native_loader.toolchain_check()
+    name = "native" if ok else "numpy"
+    t0 = time.perf_counter()
+    native_loader.decoder(name)                 # builds the native library
+    emit({"phase": "png_decoder", "card": smi, "chosen": name,
+          "native_toolchain": ok, "toolchain_log": log[-400:],
+          "build_s": time.perf_counter() - t0})
+    return name
+
+
+def write_bench_folder(root: Path, poses: list, frames: list,
+                       imu_meas: list) -> tuple[str, str]:
+    """The vio input as an ASL folder at EuRoC-epoch ns stamps, and a rig
+    calibration of bench.py's camera (body at the camera) with the default
+    IMU parameters. Returns (dataset, calibration) paths."""
+    n = len(frames)
+    cam_ns = [EUROC_T0_NS + k * round(syn.CAM_DT * 1e9) for k in range(n)]
+    t_end = (n - 1) * syn.CAM_DT
+    imu = [(EUROC_T0_NS + round(t * 1e9), g, a) for t, g, a in imu_meas
+           if t <= t_end]
+    asl.write_asl(str(root / "seq"), [np.asarray(f) for f in frames], cam_ns,
+                  [np.linalg.inv(T) for T in poses], imu, level=1)
+    asl.write_calib(str(root / "calib.yaml"), syn.BENCH_INTRINSICS,
+                    syn.BENCH_W, syn.BENCH_H, imu_params=ImuParams())
+    return str(root / "seq"), str(root / "calib.yaml")
+
+
+def tum_gap(out) -> float:
+    """Largest gap between the TUM file the runner wrote and the poses it
+    returned (positions and stamps)."""
+    ts, pos = load_trajectory_tum(out.out)
+    mats = np.stack(out.poses)
+    if len(ts) != len(out.poses):
+        return float("inf")
+    return max(float(np.abs(pos - mats[:, :3, 3]).max()),
+               float(np.abs(ts - np.asarray(out.stamps)).max()))
+
+
+def runner_fields(out, wall_s: float, warmup: int, stage_ms: dict,
+                  counts: dict) -> dict:
+    n = len(out.stamps)
+    return {"frames": n, "warmup": warmup, "png_decoder": out.png_decoder,
+            "read_ms_per_frame": out.read_s / n * 1e3,
+            "fps_overall": n / wall_s, "command_s": wall_s,
+            "host_reads_per_frame": getattr(out.handler, "host_reads",
+                                            0) / n,
+            "stage_ms_per_call": {k.lstrip("_"): t / c
+                                  for k, (c, t) in stage_ms.items()},
+            "stage_calls": {k.lstrip("_"): c
+                            for k, (c, _) in stage_ms.items()},
+            "launches": counts,
+            "peak_mem_MB": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "tum_max_gap": tum_gap(out)}
+
+
+def euroc_vio_run(smi: str, label: str, seq: str, calib: str, decoder: str,
+                  poses: list, session) -> dict:
+    """``run_euroc_vio.main`` in-process on the folder, the host
+    ``FrameHandlerVIO`` (``euroc``) or ``--device-pipeline`` (``euroc_
+    device``), with the vio phase's configuration, the rpg results layout
+    and the TUM file; the vio phase's gates. ``session``: for ``euroc``,
+    the host_vio phase's trace of the same frames at session-relative
+    stamps and its Sim3 ATE from the first TRACKING frame, recorded beside
+    this run's and the JAX package's on the CPU at both (JAX_HOST_VIO_CPU,
+    JAX_HOST_VIO_EPOCH_CPU), or
+    None. Returns the launch counts."""
+    device_pipeline = label == "euroc_device"
+    events: list = []
+    init_gathers: list = []
+
+    def hook(h):
+        if device_pipeline:
+            time_methods(h, VIO_STAGES, events)
+            time_methods(h.backend, BACKEND_PROGRAMS, events)
+            count_launches_in(h, "_branch_init", cuda_tiles.GATHER_TILES,
+                              init_gathers)
+        else:
+            time_methods(h, HOST_STAGES, events)
+            time_methods(h.backend, HOST_BACKEND, events)
+            count_launches_in(h, "_process_init", cuda_tiles.GATHER_TILES,
+                              init_gathers)
+
+    root = Path(seq).parent
+    argv = [seq, "--calib", calib, "--results-dir",
+            str(root / f"results_{label}"), "--out",
+            str(root / f"{label}.txt"), "--max-frames", str(EUROC_FRAMES),
+            "--png-decoder", decoder]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_counts()
+    c0 = time.perf_counter()
+    out = run_euroc_vio.main(argv + ["--device-pipeline"] * device_pipeline,
+                             on_handler=hook, cfg=vio_config())
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - c0
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    stage_ms = per_call(events)
+    h = out.handler
+    if device_pipeline:
+        stages = out.meta[:, 0].astype(int)
+        n_states, chi2 = h.world.backend_k, float(h.world.backend_chi2)
+    else:
+        stages = np.array([r.stage.value for r in out.results])
+        n_states = h.backend.n_states
+        chi2 = float(h.stats.get("backend_chi2", float("nan")))
+    mats = np.stack(out.poses)
+    tracking = stages == Stage.TRACKING.value
+    first_track = int(np.argmax(tracking)) if tracking.any() else -1
+    n_timed = EUROC_FRAMES - EUROC_WARMUP
+    summary = out.summary
+    line = {"phase": label, "card": smi, "runner": "run_euroc_vio",
+            "handler": type(h).__name__,
+            "config": "mono_vio_degraded_imagery",
+            "resolution": [syn.BENCH_W, syn.BENCH_H],
+            "first_stamp_s": out.stamps[0],
+            **runner_fields(out, wall_s, EUROC_WARMUP, stage_ms, counts),
+            "n_tracking": int(tracking[EUROC_WARMUP:].sum()),
+            "n_timed": n_timed, "first_tracking_frame": first_track,
+            "backend_keyframes": int(n_states), "backend_chi2": chi2,
+            "gather_launches_in_init_frames": init_gathers,
+            "rpg_summary": summary}
+    if first_track >= 0:
+        gt = np.stack([np.linalg.inv(T)[:3, 3]
+                       for T in poses[first_track:EUROC_FRAMES]])
+        line["ate_m_from_first_tracking"] = ate_rmse(
+            mats[first_track:, :3, 3], gt, align="sim3")[0]
+    if session is not None:
+        s_mats, s_ate = session
+        gap = np.linalg.norm(mats[:, :3, 3] - s_mats[:EUROC_FRAMES, :3, 3],
+                             axis=-1)
+        line["session_stamps"] = {
+            "ate_m_from_first_tracking": s_ate,
+            "max_pos_gap_m": float(gap.max()),
+            "median_pos_gap_m": float(np.median(gap)),
+            "bit_identical": bool(np.array_equal(
+                mats, s_mats[:EUROC_FRAMES]))}
+        line["jax_reference_cpu"] = {"session_stamps": JAX_HOST_VIO_CPU,
+                                     "epoch_stamps": JAX_HOST_VIO_EPOCH_CPU}
+    emit(line)
+    if line["n_tracking"] < 0.9 * n_timed:
+        fail(f"{label}: TRACKING on {line['n_tracking']}/{n_timed} timed "
+             "frames")
+    if not 0 <= first_track < EUROC_WARMUP:
+        fail(f"{label}: TRACKING first reached at frame {first_track}")
+    if not (n_states >= 2 and np.isfinite(chi2) and chi2 > 0):
+        fail(f"{label}: backend {n_states} states, chi2 {chi2}")
+    if not (np.isfinite(mats).all() and "ate_rmse_sim3_m" in summary
+            and summary["ate_rmse_sim3_m"]
+            < 0.15 * summary["traj_length_m"]):
+        fail(f"{label}: rpg summary {summary}")
+    if line["tum_max_gap"] > TUM_TOL:
+        fail(f"{label}: the TUM file is {line['tum_max_gap']} from the "
+             "poses returned")
+    if not init_gathers or min(init_gathers) <= 0:
+        fail(f"{label}: gather_tiles launches in the init frames "
+             f"{init_gathers}")
+    launch_gates(label, counts, stage_ms, vio_config())
+    return counts
+
+
+def euroc_mono_run(smi: str, seq: str, calib: str, decoder: str,
+                   poses: list) -> dict:
+    """``run_euroc_mono.main`` with examples/param/pinhole.yaml and a
+    tracefile on the folder's first 60 frames: the bootstrap reaches
+    TRACKING within the warm-up, the tracefile has a row a frame, the TUM
+    file equals the poses, the launch gates; TRACKING after the warm-up and
+    the Sim3 ATE of the tracked frames are recorded beside the JAX
+    package's on the same input (JAX_EUROC_MONO_CPU). Returns the launch
+    counts."""
+    events: list = []
+    root = Path(seq).parent
+    trace_dir = root / "trace_mono"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_counts()
+    c0 = time.perf_counter()
+    out = run_euroc_mono.main(
+        [seq, "--calib", calib, "--config", str(PINHOLE_YAML),
+         "--trace-dir", str(trace_dir), "--out", str(root / "mono.txt"),
+         "--max-frames", str(EUROC_MONO_FRAMES), "--png-decoder", decoder],
+        on_handler=lambda h: time_methods(h, HOST_STAGES, events))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - c0
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    stage_ms = per_call(events)
+    stages = np.array([r.stage.value for r in out.results])
+    tracking = stages == Stage.TRACKING.value
+    first_track = int(np.argmax(tracking)) if tracking.any() else -1
+    rows = (trace_dir / "trace.csv").read_text().splitlines() \
+        if (trace_dir / "trace.csv").exists() else []
+    line = {"phase": "euroc_mono", "card": smi, "runner": "run_euroc_mono",
+            "config": "examples/param/pinhole.yaml",
+            **runner_fields(out, wall_s, EUROC_WARMUP, stage_ms, counts),
+            "first_tracking_frame": first_track,
+            "n_tracking_after_warmup": int(tracking[EUROC_WARMUP:].sum()),
+            "relocalizing_frames": int(
+                (stages == Stage.RELOCALIZING.value).sum()),
+            "tracefile_rows": len(rows) - 1,
+            "tracefile_columns": rows[0].split(",") if rows else [],
+            "jax_reference_cpu": JAX_EUROC_MONO_CPU}
+    tr = np.nonzero(tracking)[0]
+    if len(tr) > 3:
+        mats = np.stack(out.poses)
+        gt = np.stack([np.linalg.inv(poses[k])[:3, 3] for k in tr])
+        line["ate_m_tracked"] = ate_rmse(mats[tr, :3, 3], gt,
+                                         align="sim3")[0]
+    emit(line)
+    if not 0 <= first_track < EUROC_WARMUP:
+        fail(f"euroc_mono: TRACKING first reached at frame {first_track}")
+    if line["tracefile_rows"] != EUROC_MONO_FRAMES:
+        fail(f"euroc_mono: {line['tracefile_rows']} tracefile rows for "
+             f"{EUROC_MONO_FRAMES} frames")
+    if line["tum_max_gap"] > TUM_TOL:
+        fail(f"euroc_mono: the TUM file is {line['tum_max_gap']} from the "
+             "poses returned")
+    launch_gates("euroc_mono", counts, stage_ms, out.handler.cfg)
+    return counts
+
+
+def euroc_stereo_run(smi: str, root: Path, decoder: str) -> dict:
+    """The rig phases' two-camera input (first 40 frames) as cam0/cam1 of
+    an ASL folder, through ``run_euroc_stereo.main`` with its default
+    calibration (examples/param/euroc_stereo.yaml, body at the IMU) and
+    examples/param/pinhole.yaml; host_stereo's gates on the motion relative
+    to the first frame (the runner's world is the IMU's first pose):
+    TRACKING by frame 1 and at the end, unaligned ATE < 0.15 × path, path
+    scale 0.85–1.18, every alignment on both cameras, gathers in every
+    triangulation, the launch gates. Returns the launch counts."""
+    n = EUROC_STEREO_FRAMES
+    cams, T_body = syn.euroc_stereo_rig()
+    poses, views, _ = syn.rig_sequence(n, cams, T_body, STEREO_SEEDS, "cuda")
+    cam_ns = [EUROC_T0_NS + k * round(syn.CAM_DT * 1e9) for k in range(n)]
+    rig = load_rig_yaml(str(EUROC_STEREO_YAML), device="cpu")
+    T_bc0 = rig.T_B_C_matrices[0]
+    asl.write_asl(str(root / "seq"), [v[0] for v in views], cam_ns,
+                  [np.linalg.inv(T) @ np.linalg.inv(T_bc0) for T in poses],
+                  frames1=[v[1] for v in views], level=1)
+    events: list = []
+    tri_gathers: list = []
+    n_align_cams: list = []
+
+    def hook(h):
+        time_methods(h, STAGES + ("_triangulate_keyframe",), events)
+        count_launches_in(h, "_triangulate_keyframe",
+                          cuda_tiles.GATHER_TILES, tri_gathers)
+        extra = h._extra_align_inputs
+
+        def counted(*a, **k):
+            got = extra(*a, **k)
+            n_align_cams.append(1 + len(got))
+            return got
+        h._extra_align_inputs = counted
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_counts()
+    c0 = time.perf_counter()
+    out = run_euroc_stereo.main(
+        [str(root / "seq"), "--config", str(PINHOLE_YAML), "--out",
+         str(root / "stereo.txt"), "--png-decoder", decoder],
+        on_handler=hook)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - c0
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    stage_ms = per_call(events)
+    stages = np.array([r.stage.value for r in out.results])
+    mats = np.stack(out.poses)
+    # motion relative to the first frame, in cam0's first frame
+    est = np.stack([np.linalg.inv(mats[0]) @ M for M in mats])[:, :3, 3]
+    gt = np.stack([poses[0] @ np.linalg.inv(T) for T in poses])[:, :3, 3]
+    g_rel, e_rel = gt - gt[0], est - est[0]
+    line = {"phase": "euroc_stereo", "card": smi,
+            "runner": "run_euroc_stereo",
+            "config": "examples/param/pinhole.yaml",
+            "calib": "examples/param/euroc_stereo.yaml",
+            **runner_fields(out, wall_s, EUROC_STEREO_WARMUP, stage_ms,
+                            counts),
+            "stages": stages.tolist(),
+            "keyframes_after_first": int(sum(r.is_keyframe
+                                             for r in out.results[1:])),
+            "gathers_per_triangulation": tri_gathers,
+            "align_cameras": sorted(set(n_align_cams)),
+            "ate_unaligned_m": unaligned_ate(est, gt),
+            "path_scale": float(np.sum(g_rel * e_rel)
+                                / max(np.sum(e_rel * e_rel), 1e-12)),
+            "traj_len_m": float(np.linalg.norm(np.diff(gt, axis=0),
+                                               axis=-1).sum())}
+    emit(line)
+    tracking = stages == Stage.TRACKING.value
+    if not (tracking[:2].any() and tracking[-1]):
+        fail(f"euroc_stereo: stages {stages.tolist()}")
+    if not (np.isfinite(mats).all()
+            and line["ate_unaligned_m"] < 0.15 * line["traj_len_m"]):
+        fail(f"euroc_stereo: unaligned ATE {line['ate_unaligned_m']} m "
+             f"over {line['traj_len_m']} m")
+    if not 0.85 < line["path_scale"] < 1.18:
+        fail(f"euroc_stereo: path scale {line['path_scale']}")
+    if line["align_cameras"] != [2]:
+        fail(f"euroc_stereo: sparse alignment on {line['align_cameras']} "
+             "cameras")
+    if not tri_gathers or min(tri_gathers) <= 0:
+        fail(f"euroc_stereo: gather_tiles launches per triangulation "
+             f"{tri_gathers}")
+    if line["tum_max_gap"] > TUM_TOL:
+        fail(f"euroc_stereo: the TUM file is {line['tum_max_gap']} from "
+             "the poses returned")
+    launch_gates("euroc_stereo", counts, stage_ms, out.handler.cfg)
+    return counts
+
+
+def euroc_phases(smi: str, poses: list, frames: list, imu_meas: list,
+                 session) -> dict:
+    """The EuRoC runners on the card, in-process, from ASL folders at
+    EuRoC-epoch stamps: ``euroc`` (host VIO) and ``euroc_device``
+    (``--device-pipeline``) on the vio input's first 80 frames,
+    ``euroc_mono`` on its first 60, ``euroc_stereo`` on the rig input's
+    first 40. ``session``: the host_vio phase's trace of the same frames
+    at session-relative stamps and its ATE (what the epoch changed), or
+    None. Returns the launch counts by phase."""
+    decoder = choose_png_decoder(smi)
+    counts = {}
+    with tempfile.TemporaryDirectory() as d:
+        c0 = time.perf_counter()
+        seq, calib = write_bench_folder(Path(d), poses[:EUROC_FRAMES],
+                                        frames[:EUROC_FRAMES], imu_meas)
+        emit({"phase": "euroc_folder", "frames": EUROC_FRAMES,
+              "write_s": time.perf_counter() - c0,
+              "first_stamp_ns": EUROC_T0_NS})
+        for label in ("euroc", "euroc_device"):
+            counts[label] = euroc_vio_run(
+                smi, label, seq, calib, decoder, poses,
+                session if label == "euroc" else None)
+        counts["euroc_mono"] = euroc_mono_run(smi, seq, calib, decoder,
+                                              poses)
+    with tempfile.TemporaryDirectory() as d:
+        counts["euroc_stereo"] = euroc_stereo_run(smi, Path(d), decoder)
+    return counts
+
+
+def checkpoint_phase(smi: str, frames: list, whole: tuple) -> dict:
+    """``FrameHandlerMono`` on host_mono's input: 20 frames, ``save_state``,
+    a new handler, ``load_state``, 20 frames; the 40 results must equal
+    host_mono's uninterrupted run (``whole``: its poses, stages and
+    keyframe flags) to the bit. Returns the launch counts."""
+    cam, cfg = Camera.pinhole(*INTR, W, H), euroc_config()
+    h = FrameHandlerMono(cfg, cam, device="cuda")
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    first = HostRun(h, h.add_image, [], "cuda")
+    first.feed(frames, 0, CHECKPOINT_FRAMES)
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "state.npz")
+        c0 = time.perf_counter()
+        sio.save_state(path, h)
+        save_s = time.perf_counter() - c0
+        size = Path(path).stat().st_size
+        h2 = FrameHandlerMono(cfg, cam, device="cuda")
+        c0 = time.perf_counter()
+        sio.load_state(path, h2)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - c0
+    second = HostRun(h2, h2.add_image, [], "cuda")
+    second.feed(frames, CHECKPOINT_FRAMES, 2 * CHECKPOINT_FRAMES)
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    got = [np.concatenate(x) for x in zip(first.trace(), second.trace())]
+    n = 2 * CHECKPOINT_FRAMES
+    same = all(np.array_equal(a, b[:n]) for a, b in zip(got, whole))
+    emit({"phase": "checkpoint", "card": smi, "frames": n,
+          "resumed_at": CHECKPOINT_FRAMES, "save_s": save_s,
+          "load_s": load_s, "file_MB": size / 2 ** 20,
+          "equal_to_uninterrupted": same,
+          "max_pos_diff_m": float(np.abs(got[0][:, :3, 3]
+                                         - whole[0][:n, :3, 3]).max()),
+          "launches": counts})
+    if not same:
+        fail("checkpoint: the resumed run differs from the uninterrupted one")
+    if min(counts["gather_tiles"], counts["align_level"]) <= 0:
+        fail(f"checkpoint: launches {counts}")
+    return counts
+
+
+def _detections(det) -> np.ndarray:
+    """Valid detections as rows (x, y, level, type, score), sorted by
+    position: the set a detector found, whatever its rank order."""
+    v = det.valid.cpu().numpy()
+    rows = np.concatenate([det.px.cpu().numpy()[v],
+                           det.level.cpu().numpy()[v, None],
+                           det.ftype.cpu().numpy()[v, None],
+                           det.score.cpu().numpy()[v, None]], axis=1)
+    return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+
+
+def detectors_phase(smi: str, bench_frame, plane_frames: list) -> dict:
+    """Every ``detector_type`` on bench.py's first frame, card against CPU
+    (the same cells, pixels, levels and types; scores within 1e-4 of the
+    largest), with its card ms; then ``FrameHandlerMono`` with
+    ``shitomasi_grad`` on host_mono's first 20 frames: TRACKING on every
+    frame (the JAX package tracks every frame of the CPU test's run,
+    tests/test_torch_detectors.py) and the launch gates. Returns the
+    launch counts of the handler's run."""
+    cs_ = 30
+    n_cols, n_rows = -(-syn.BENCH_W // cs_), -(-syn.BENCH_H // cs_)
+    pyr = {dev: build_pyramid(image_to_float(np.asarray(bench_frame), dev),
+                              4) for dev in ("cuda", "cpu")}
+    kinds = {}
+    for kind in det_mod.DETECTOR_TYPES:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            occ = torch.zeros(n_cols * n_rows, dtype=torch.bool, device=dev)
+
+            def run(dev=dev, occ=occ):
+                return det_mod.detect_features(
+                    pyr[dev], occ, cs_, n_cols, n_rows, max_features=360,
+                    threshold_primary=8.0, max_level=3, detector_type=kind)
+            got[dev] = _detections(run())
+            if dev == "cuda":
+                card_ms = gs.cuda_ms(run, reps=3, samples=3)
+        a, b = got["cuda"], got["cpu"]
+        same = a.shape == b.shape and np.array_equal(a[:, :4], b[:, :4])
+        err = (float(np.abs(a[:, 4] - b[:, 4]).max()
+                     / max(np.abs(b[:, 4]).max(), 1.0)) if same else None)
+        kinds[kind] = {"n": int(b.shape[0]), "card_n": int(a.shape[0]),
+                       "same_cells": bool(same), "score_rel_err": err,
+                       "card_ms": card_ms}
+    cam, cfg = Camera.pinhole(*INTR, W, H), euroc_config()
+    cfg.detector.detector_type = "shitomasi_grad"
+    h = FrameHandlerMono(cfg, cam, device="cuda")
+    events: list = []
+    time_methods(h, STAGES, events)
+    run = HostRun(h, h.add_image, [], "cuda")
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    wall, chunk_fps = timed_run(run, plane_frames, DETECTOR_FRAMES, 5)
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    torch.cuda.synchronize()
+    stage_ms = per_call(events)
+    _, stages, kf = run.trace()
+    emit({"phase": "detectors", "card": smi,
+          "resolution": [syn.BENCH_W, syn.BENCH_H], "detectors": kinds,
+          "shitomasi_grad_handler": {
+              "frames": DETECTOR_FRAMES, "stages": stages.tolist(),
+              "keyframes_after_first": int(kf[1:].sum()),
+              "fps_overall": float(len(wall) / np.sum(wall)),
+              "launches": counts}})
+    bad = [k for k, v in kinds.items()
+           if not v["same_cells"] or v["score_rel_err"] > DETECTOR_RTOL
+           or v["n"] == 0]
+    if bad:
+        fail(f"detectors: card and CPU disagree for {bad}")
+    if not (stages == Stage.TRACKING.value).all():
+        fail(f"detectors: shitomasi_grad run left TRACKING: "
+             f"{stages.tolist()}")
+    launch_gates("detectors", counts, stage_ms, cfg)
+    return counts
+
+
+def edge_depth_phase(smi: str, poses: list, frames: list) -> dict:
+    """``detect_edges`` on bench.py's first frame and
+    ``refine_depth_photometric`` of its 512 strongest edge pixels (levels
+    0–1, 3.4 m initial depth, 10 GN iterations) into the second frame, on
+    the card and on the CPU: the finest reliable level equal on ≥ 99.9% of
+    pixels and the edge response within 1e-3 of the largest there; the
+    converged sets equal and depths within 1e-3 relative; gather_tiles
+    launched once per GN iteration. The counts are set to 0 before the
+    card's ``detect_edges`` and read after its refinement; each function is
+    then timed again warm (CUDA events on the card, the wall clock on the
+    CPU, 3 calls) beside its first, cold call. Returns the launch counts."""
+    cam = Camera.pinhole(*syn.BENCH_INTRINSICS, syn.BENCH_W, syn.BENCH_H)
+    T = np.asarray(poses[1]) @ np.linalg.inv(poses[0])
+    res, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        pyr0 = build_pyramid(image_to_float(np.asarray(frames[0]), dev), 4)
+        pyr1 = build_pyramid(image_to_float(np.asarray(frames[1]), dev), 4)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            _cuda.reset_counts()
+        c0 = time.perf_counter()
+        edges = edge_depth.detect_edges(pyr0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = {"edges": edges, "edges_s": time.perf_counter() - c0}
+        if dev == "cuda":
+            # features from the card's map, the same for both devices
+            mag = torch.where(edges.level <= 1, edges.edge.abs(), 0.0)
+            border = torch.zeros_like(mag, dtype=torch.bool)
+            border[16:-16, 16:-16] = True
+            flat = torch.where(border, mag, 0.0).reshape(-1)
+            idx = torch.topk(flat, EDGE_FEATURES).indices
+            uv = torch.stack([idx % syn.BENCH_W, idx // syn.BENCH_W],
+                             -1).float()
+            lvl = edges.level.reshape(-1)[idx]
+            feats = (uv.cpu(), lvl.cpu())
+        uv, lvl = feats[0].to(dev), feats[1].to(dev)
+        camd = cam.to(dev)
+        f_ref = proj.backproject(camd, uv)
+        offs = interp.patch_offsets(edge_depth.PATCH, device=dev) + 0.5
+        ref = torch.zeros((EDGE_FEATURES, edge_depth.PATCH ** 2),
+                          device=dev)
+        for lv in (0, 1):
+            img = level_view(pyr0, lv)
+            vals, _ = interp.bilinear(img, uv[:, None, :] / (1 << lv)
+                                      + offs[None])
+            ref = torch.where((lvl == lv)[:, None], vals, ref)
+        Tcr = se3_of(T)
+        Tcr = SE3(Tcr.q.to(dev), Tcr.t.to(dev))
+
+        def refine(dev=dev, camd=camd, Tcr=Tcr, f_ref=f_ref, ref=ref,
+                   lvl=lvl, pyr1=pyr1):
+            return edge_depth.refine_depth_photometric(
+                pyr1, camd, Tcr, f_ref, ref,
+                torch.full((EDGE_FEATURES,), 3.4, device=dev), lvl,
+                torch.ones(EDGE_FEATURES, dtype=torch.bool, device=dev),
+                n_iter=EDGE_ITERS)
+        c0 = time.perf_counter()
+        out = refine()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in _cuda.KERNELS}
+        res[dev] |= {"refine": out, "refine_s": time.perf_counter() - c0}
+        if dev == "cuda":
+            warm = {"edges_ms": gs.cuda_ms(
+                        lambda: edge_depth.detect_edges(pyr0), 1, 3),
+                    "refine_ms": gs.cuda_ms(refine, 1, 3)}
+        else:
+            warm = {}
+            for key, fn in (("edges_ms",
+                             lambda: edge_depth.detect_edges(pyr0)),
+                            ("refine_ms", refine)):
+                walls = []
+                for _ in range(3):
+                    c0 = time.perf_counter()
+                    fn()
+                    walls.append(time.perf_counter() - c0)
+                warm[key] = float(np.median(walls) * 1e3)
+        res[dev]["warm"] = warm
+    ce, pe = res["cuda"]["edges"], res["cpu"]["edges"]
+    lev_same = (ce.level.cpu() == pe.level).float().mean().item()
+    m = ce.level.cpu() == pe.level
+    scale = max(float(pe.edge.abs().max()), 1e-6)
+    edge_err = float((ce.edge.cpu() - pe.edge).abs()[m].max()) / scale
+    cr, pr = res["cuda"]["refine"], res["cpu"]["refine"]
+    conv_same = bool(torch.equal(cr.converged.cpu(), pr.converged))
+    both = cr.converged.cpu() & pr.converged
+    depth_err = float(((cr.depth.cpu() - pr.depth).abs()
+                       / pr.depth.abs())[both].max()) if both.any() else 0.0
+    emit({"phase": "edge_depth", "card": smi,
+          "resolution": [syn.BENCH_W, syn.BENCH_H],
+          "features": EDGE_FEATURES, "gn_iterations": EDGE_ITERS,
+          "edge_pixels": int((pe.edge != 0).sum()),
+          "level_equal_share": lev_same, "edge_rel_err": edge_err,
+          "converged": int(pr.converged.sum()),
+          "converged_equal": conv_same, "depth_rel_err": depth_err,
+          "launches": counts,
+          "cold_s": {d: {k: res[d][k] for k in ("edges_s", "refine_s")}
+                     for d in ("cuda", "cpu")},
+          "warm_ms": {d: res[d]["warm"] for d in ("cuda", "cpu")}})
+    if lev_same < 0.999 or edge_err > EDGE_TOL:
+        fail(f"edge_depth: detect_edges card vs CPU: levels equal on "
+             f"{lev_same}, response error {edge_err}")
+    if not conv_same or depth_err > EDGE_TOL or int(pr.converged.sum()) == 0:
+        fail(f"edge_depth: refinement card vs CPU: converged equal "
+             f"{conv_same}, depth error {depth_err}")
+    if counts["gather_tiles"] != EDGE_ITERS:
+        fail(f"edge_depth: {counts['gather_tiles']} gather_tiles launches "
+             f"for {EDGE_ITERS} GN iterations")
+    return counts
+
+
 def only_phases(smi: str, names: list) -> None:
-    """``--only``: the named host phases on their own inputs, for
-    development calls (no kernels line, no result line)."""
-    if "host_mono" in names:
-        frames = [syn.render_textured_plane(gt_pose(t), INTR, W, H, PLANE_Z)
-                  for t in range(N_FRAMES)]
+    """``--only``: the named host and entry-point phases on their own
+    inputs, for development calls (no kernels line, no result line; the
+    euroc phase compared with session stamps when host_vio runs too).
+    ``host_vio_epoch`` (here only) is host_vio at EuRoC-epoch stamps
+    through the same loop; with host_vio, ``epoch_effect`` prints the
+    position gap between the two a frame."""
+    frames = [syn.render_textured_plane(gt_pose(t), INTR, W, H, PLANE_Z)
+              for t in range(N_FRAMES)]
+    if {"host_mono", "checkpoint"} & set(names):
         _, mats, meta, _, _ = run_slice(frames, "cuda")
-        host_mono_phase(smi, frames, mats, meta)
+        whole = host_mono_phase(smi, frames, mats, meta)[1]
+        if "checkpoint" in names:
+            checkpoint_phase(smi, frames, whole)
+    bench = syn.bench_sequence(EUROC_FRAMES, 7, "cuda")
+    session = None
     if "host_vio" in names:
-        host_vio_phase(smi, *syn.bench_sequence(VIO_FRAMES, 7, "cuda"))
+        session = host_vio_phase(smi, *bench)[1]
+    if "host_vio_epoch" in names:
+        e_mats = host_vio_phase(smi, *bench, t0=EUROC_T0_NS * 1e-9)[1][0]
+        if session is not None:
+            gap = np.linalg.norm(e_mats[:, :3, 3] - session[0][:, :3, 3],
+                                 axis=-1)
+            emit({"phase": "epoch_effect", "card": smi,
+                  "first_frame_apart": int(np.argmax(gap > 0))
+                  if (gap > 0).any() else -1,
+                  "max_pos_gap_m": float(gap.max()),
+                  "pos_gap_by_frame_m": gap.tolist()})
+    if {"euroc", "euroc_mono", "euroc_stereo"} & set(names):
+        euroc_phases(smi, *bench, session)
+    if "detectors" in names:
+        detectors_phase(smi, bench[1][0], frames)
+    if "edge_depth" in names:
+        edge_depth_phase(smi, bench[0], bench[1])
     if "host_slam" in names:
         poses, frames, _ = syn.bench_sequence(
             syn.LOOP_FRAMES, syn.LOOP_DEGRADE_SEED, "cuda",
@@ -2219,9 +2946,17 @@ def main() -> None:
                                       == meta[:N_CPU_FRAMES, 0]).all():
         fail(f"card and CPU runs disagree: position gap {gap.max()} m")
 
-    host_counts = {"host_mono": host_mono_phase(smi, frames, mats, meta)}
+    host_counts = {}
+    host_counts["host_mono"], whole = host_mono_phase(smi, frames, mats,
+                                                      meta)
+    host_counts["checkpoint"] = checkpoint_phase(smi, frames, whole)
     vio_counts, vio_input = vio_phase(smi)
-    host_counts["host_vio"] = host_vio_phase(smi, *vio_input)
+    host_counts["host_vio"], host_vio_session = host_vio_phase(smi,
+                                                               *vio_input)
+    host_counts |= euroc_phases(smi, *vio_input, host_vio_session)
+    host_counts["detectors"] = detectors_phase(smi, vio_input[1][0], frames)
+    host_counts["edge_depth"] = edge_depth_phase(smi, vio_input[0],
+                                                 vio_input[1])
     del vio_input
     slam_counts, slam_input = slam_phase(smi)
     host_counts["host_slam"] = host_slam_phase(smi, *slam_input)

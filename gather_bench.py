@@ -6,7 +6,7 @@ NVIDIA card.
 
 Imports ``svo_pro_universal_tpu_torch`` from DIR (default: the directory of
 this file), so one run on the card can time two commits: unpack the other
-into a directory and pass it. For each of the ten (kernel, N, tile) shapes
+into a directory and pass it. For each of the eleven (kernel, N, tile) shapes
 of the main path (``PATH_SHAPES`` of
 ``svo_pro_universal_tpu_torch/testing/gather_shapes.py``, which makes the
 inputs and holds the timers) it measures, by CUDA events:

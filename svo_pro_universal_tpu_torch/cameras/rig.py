@@ -17,6 +17,7 @@ import torch
 
 from svo_pro_universal_tpu_torch.cameras.projections import (
     Camera, DistortionModel, ProjectionModel)
+from svo_pro_universal_tpu_torch.utils import yaml_lite
 from svo_pro_universal_tpu_torch.utils.transform import SE3, matrix_to_quat
 
 _DIST_NAMES = {
@@ -72,6 +73,8 @@ class CameraRig:
     imu_params: Optional[ImuParams] = None
     imu_init: Optional[ImuInitialization] = None
     extras: dict = field(default_factory=dict)
+    # T_B_C [4×4] float64 of each camera as the file gives it
+    T_B_C_matrices: list = field(default_factory=list)
 
     def __len__(self):
         return len(self.cameras)
@@ -107,18 +110,17 @@ def _parse_camera(node: dict[str, Any], device) -> Camera:
 
 def load_rig_yaml(path: str, device=None) -> CameraRig:
     """Load a rig calibration YAML in the reference's schema
-    (reference: examples/param/calib/euroc_mono.yaml)."""
-    import yaml
-    with open(path) as f:
-        doc = yaml.safe_load(f)
-    return parse_rig(doc, device=device)
+    (reference: examples/param/calib/euroc_mono.yaml), read by
+    ``utils.yaml_lite`` (no YAML library)."""
+    return parse_rig(yaml_lite.load_file(path), device=device)
 
 
 def parse_rig(doc: dict[str, Any], device=None) -> CameraRig:
-    cameras, extrinsics = [], []
+    cameras, extrinsics, matrices = [], [], []
     for node in doc["cameras"]:
         cameras.append(_parse_camera(node, device))
         T = np.asarray(node["T_B_C"]["data"], dtype=np.float64).reshape(4, 4)
+        matrices.append(T)
         Tt = torch.as_tensor(T.astype(np.float32), device=device)
         extrinsics.append(SE3(matrix_to_quat(Tt[:3, :3]), Tt[:3, 3]))
 
@@ -139,4 +141,5 @@ def parse_rig(doc: dict[str, Any], device=None) -> CameraRig:
             acc_bias_sigma=float(d.get("acc_bias_sigma", 0.1)),
         )
     return CameraRig(cameras, extrinsics, label=str(doc.get("label", "rig")),
-                     imu_params=imu_params, imu_init=imu_init)
+                     imu_params=imu_params, imu_init=imu_init,
+                     T_B_C_matrices=matrices)

@@ -20,6 +20,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
+from svo_pro_universal_tpu_torch.utils import yaml_lite
+
 
 @dataclass
 class CapacityOptions:
@@ -372,9 +374,7 @@ def load_config(path: Optional[str] = None, overrides: Optional[dict] = None) ->
     cfg = Config()
     doc: dict[str, Any] = {}
     if path is not None:
-        import yaml
-        with open(path) as f:
-            doc = yaml.safe_load(f) or {}
+        doc = yaml_lite.load_file(path) or {}
     if overrides:
         doc.update(overrides)
 

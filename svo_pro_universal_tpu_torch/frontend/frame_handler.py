@@ -49,7 +49,7 @@ from svo_pro_universal_tpu_torch.frontend.map import (
 from svo_pro_universal_tpu_torch.ops import alignment as align_mod
 from svo_pro_universal_tpu_torch.ops import depth_filter as df_mod
 from svo_pro_universal_tpu_torch.ops import detector as det_mod
-from svo_pro_universal_tpu_torch.ops.detector import SUPPORTED_DETECTORS
+from svo_pro_universal_tpu_torch.ops.detector import DETECTOR_TYPES
 from svo_pro_universal_tpu_torch.ops.pyramid import (
     build_pyramid, image_to_float)
 from svo_pro_universal_tpu_torch.ops import matcher as matcher_mod
@@ -176,10 +176,10 @@ class StagePrograms:
     def __init__(self, cfg: Config, cam: proj.Camera,
                  T_cam_body: Optional[SE3] = None,
                  device: torch.device | str | None = None):
-        if cfg.detector.detector_type not in SUPPORTED_DETECTORS:
-            raise NotImplementedError(
-                f"detector_type {cfg.detector.detector_type!r}: the port "
-                "runs 'fast_grad'; the other detectors are a later slice")
+        if cfg.detector.detector_type not in DETECTOR_TYPES:
+            raise ValueError(
+                f"unknown detector_type {cfg.detector.detector_type!r}; "
+                f"one of {DETECTOR_TYPES}")
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -446,7 +446,11 @@ class StagePrograms:
         so_res = so_mod.optimize_points(
             pool.pos[lidc], f_obs, T_obs, obs_ok, chosen, n_iter=5)
         widx = torch.where(chosen, lidc, pool.capacity)
-        now_i = (frame.timestamp * 1000.0).to(torch.int32).long()
+        # the frame's ms stamp as XLA converts it: to int32, saturating (at
+        # EuRoC's epoch, 1.4e12 ms, torch's CPU cast would wrap to -2³¹
+        # and rank the points just optimized first)
+        now_i = torch.clamp((frame.timestamp * 1000.0).to(torch.float64),
+                            -2.0 ** 31, 2.0 ** 31 - 1).long()
         return pool._replace(
             pos=set_drop(pool.pos, widx, so_res.xyz),
             last_structure_optim=set_drop(pool.last_structure_optim, widx,
@@ -663,6 +667,7 @@ class StagePrograms:
             max_features=self.max_fts,
             threshold_primary=cfg.detector.threshold_primary,
             threshold_secondary=cfg.detector.threshold_secondary,
+            threshold_shitomasi=cfg.detector.threshold_shitomasi,
             min_level=0, max_level=cfg.detector.max_level,
             detector_type=cfg.detector.detector_type)
         free = ~valid

@@ -75,6 +75,22 @@ def tile_bilinear(tb: TileBatch, ys: torch.Tensor, xs: torch.Tensor
     return torch.where(inb, vals, 0.0), inb
 
 
+def tile_bilinear_grad(tb: TileBatch, ys: torch.Tensor, xs: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """(val, d/dx, d/dy, inb) at [N, S] positions: central differences of
+    the bilinear surface at ±0.5 px (cf. ``interp.bilinear_with_gradient``),
+    zero where any of the five samples leaves its support."""
+    val, inb = tile_bilinear(tb, ys, xs)
+    vxp, ixp = tile_bilinear(tb, ys, xs + 0.5)
+    vxm, ixm = tile_bilinear(tb, ys, xs - 0.5)
+    vyp, iyp = tile_bilinear(tb, ys + 0.5, xs)
+    vym, iym = tile_bilinear(tb, ys - 0.5, xs)
+    allin = inb & ixp & ixm & iyp & iym
+    return (torch.where(allin, val, 0.0), torch.where(allin, vxp - vxm, 0.0),
+            torch.where(allin, vyp - vym, 0.0), allin)
+
+
 def zmssd_score_map(tb: TileBatch, ref_patch: torch.Tensor, patch: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Zero-mean SSD of ``ref_patch`` [N, patch²] against every integer patch

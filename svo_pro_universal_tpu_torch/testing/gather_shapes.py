@@ -1,5 +1,6 @@
 """The tile gathers at the shapes of the mono tracking step, of the
-FivePoint bootstrap's KLT and of the stereo triangulation, and CUDA-event
+FivePoint bootstrap's KLT, of the stereo triangulation and of the
+edge-depth refinement, and CUDA-event
 timers: the inputs and calls that ``gather_bench.py`` times and
 ``chip_smoke.py`` holds against the plain versions, so both make the same
 inputs from the same seed.
@@ -33,6 +34,10 @@ PATH_SHAPES = [
     # reference tiles (24, as the alignment's) and the epipolar scan in
     # the secondary camera's pyramid
     ("gather_tiles", 360, 40, "stereo triangulation, epipolar scan"),
+    # ops.edge_depth.refine_depth_photometric: one 24×24 tile a feature at
+    # every GN iteration (chip_smoke's edge_depth phase refines the 512
+    # strongest edge pixels of a frame)
+    ("gather_tiles", 512, 24, "edge-depth photometric refinement"),
 ]
 
 

@@ -18,13 +18,13 @@ rig of examples/param/euroc_stereo.yaml (``euroc_stereo_rig``).
 
 from __future__ import annotations
 
-import re
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from svo_pro_universal_tpu_torch.cameras import projections as proj
+from svo_pro_universal_tpu_torch.cameras.rig import load_rig_yaml
 from svo_pro_universal_tpu_torch.ops import cuda_tiles
 from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
 from svo_pro_universal_tpu_torch.ops.pyramid import (
@@ -386,37 +386,6 @@ def rig_sequence(n_frames: int, cams: list, T_body_cams: list,
 
 EUROC_STEREO_YAML = (Path(__file__).resolve().parents[2] / "examples"
                      / "param" / "euroc_stereo.yaml")
-_CALIB_PROJ = {"pinhole": proj.ProjectionModel.PINHOLE}
-_CALIB_DIST = {"radial-tangential": proj.DistortionModel.RADTAN,
-               "none": proj.DistortionModel.NONE}
-
-
-def load_calibration(path) -> list[tuple[proj.Camera, np.ndarray]]:
-    """(camera, T_B_C [4×4]) of each camera of a pinhole rig calibration in
-    the reference's schema (examples/param/*.yaml), read with regular
-    expressions so that no YAML library is needed: per ``- camera:`` block
-    its image size, type, distortion type and the three ``data`` lists
-    (intrinsics, distortion parameters, T_B_C) in that order."""
-    text = Path(path).read_text()
-    out = []
-    for block in re.split(r"^- camera:", text, flags=re.M)[1:]:
-        block = block.split("\nimu_params:")[0]
-
-        def field(key):
-            return re.search(rf"^\s*{key}:\s*(\S+)", block, re.M).group(1)
-
-        data = [np.array([float(v) for v in m.split(",")])
-                for m in re.findall(r"data:\s*\[([^\]]*)\]", block)]
-        dist = re.search(r"distortion:\s*\n\s*type:\s*(\S+)", block)
-        cam = proj.Camera(
-            _CALIB_PROJ[field("type")],
-            _CALIB_DIST[dist.group(1) if dist else "none"],
-            data[0].astype(np.float32),
-            (data[1] if dist else np.zeros(1)).astype(np.float32),
-            int(field("image_width")), int(field("image_height")),
-            field("label"))
-        out.append((cam, data[-1].reshape(4, 4)))
-    return out
 
 
 def euroc_stereo_rig(path=EUROC_STEREO_YAML
@@ -424,8 +393,9 @@ def euroc_stereo_rig(path=EUROC_STEREO_YAML
     """The EuRoC stereo rig with its body at cam0: both pinhole+radtan
     cameras and T_body_cam [4×4] = (I, T_B_C0⁻¹·T_B_C1), a 0.110 m
     baseline along cam0's x."""
-    (cam0, T0), (cam1, T1) = load_calibration(path)
-    return [cam0, cam1], [np.eye(4), np.linalg.inv(T0) @ T1]
+    rig = load_rig_yaml(path, device="cpu")
+    T0, T1 = rig.T_B_C_matrices
+    return list(rig.cameras), [np.eye(4), np.linalg.inv(T0) @ T1]
 
 
 def rotation_gap(qa, qb) -> float:

@@ -9,7 +9,8 @@ JAX.
     JAX_PLATFORMS=cpu python tests/reference_cpu.py {stereo,stereo_vio}
         [--solve float64] [--no-zupt] [--frames N] [--structure-pts N]
     JAX_PLATFORMS=cpu python tests/reference_cpu.py {host_vio,host_slam}
-        [--solve float64] [--no-zupt]
+        [--solve float64] [--no-zupt] [--epoch] [--frames N] [--port]
+    JAX_PLATFORMS=cpu python tests/reference_cpu.py euroc_mono [--frames N]
 
 `vio`: bench.py's mono_vio_degraded_imagery configuration on its degraded
 sphere scene (140 frames, degrade seed 7), fed one frame at a time; prints
@@ -52,7 +53,23 @@ chip_smoke's `host_vio` and `host_slam` phases: `FrameHandlerVIO` on the
 one JSON line a frame (stage, tracked count, keyframe, backend chi2 or the
 pose-graph node count) and a summary line: TRACKING over the timed frames,
 Sim3 ATE, backend calls and the zero-step share, or loops, pose-graph
-nodes, global-map states, fixed landmarks.
+nodes, global-map states, fixed landmarks. `--frames N` runs `host_vio`
+on the input's first N frames (chip_smoke's `host_vio` and `euroc` phases
+take 80). `--port` runs the port's `FrameHandlerVIO` on the CPU instead,
+as chip_smoke's `host_vio` phase builds it (its float64 window solve), in
+the same loop: the two packages side by side on one input.
+
+`--epoch` feeds the host handlers EuRoC-epoch stamps (the sequence's
+times plus 1403636579.763555584 s, the IMU's too), as the EuRoC runners
+do: where the package keeps absolute stamps in float32, they resolve 128 s
+there.
+
+`euroc_mono`: the JAX host `FrameHandlerMono` with
+examples/param/pinhole.yaml (FivePoint) on the first N (default 60) frames
+of the `vio` input at EuRoC-epoch stamps, the runner's loop of chip_smoke's
+`euroc_mono` phase; one JSON line a frame and a summary line (TRACKING over
+the frames after the 20-frame warm-up, relocalizations, Sim3 ATE of the
+tracked frames).
 
 The configuration and the scene come from chip_smoke.py and the port's
 `testing.synthetic` (numpy frames rendered on the CPU). A full-width run
@@ -329,17 +346,27 @@ def stepwise(cam, imu) -> None:
         flush=True)
 
 
-def host(phase: str, cam, imu) -> dict:
-    """The JAX host handler of ``phase`` on chip_smoke's input, one JSON
-    line a frame; returns the summary."""
+def _num(x):
+    return None if x is None else float(x)
+
+
+def host(phase: str, cam, imu, t0: float = 0.0, n: int | None = None,
+         port: bool = False) -> dict:
+    """The JAX host handler of ``phase`` (``port``: the port's, for
+    ``host_vio``) on chip_smoke's input (``host_vio`` on its first ``n``
+    frames, all by default), one JSON line a frame, its stamps offset by
+    ``t0``; returns the summary."""
     from svo_pro_universal_tpu.backend.loop_closing import LoopClosingOptions
     from svo_pro_universal_tpu.frontend.frame_handler import FrameHandlerVIO
     from svo_pro_universal_tpu.frontend.slam import FrameHandlerSLAM
     if phase == "host_vio":
-        n, warmup = cs.VIO_FRAMES, cs.VIO_WARMUP
+        n, warmup = n or cs.VIO_FRAMES, cs.VIO_WARMUP
         poses, frames, imu_meas = syn.bench_sequence(n, 7, "cpu")
-        h = FrameHandlerVIO(jax_config(), cam, imu_handler=imu,
-                            imu_params=ImuParams())
+        h = (cs.host_vio_run(cs.Camera.pinhole(*syn.BENCH_INTRINSICS,
+                                               syn.BENCH_W, syn.BENCH_H),
+                             cs.vio_config(), [], "cpu").h if port
+             else FrameHandlerVIO(jax_config(), cam, imu_handler=imu,
+                                  imu_params=ImuParams()))
     else:
         n, warmup = syn.LOOP_FRAMES, cs.SLAM_WARMUP
         poses, frames, imu_meas = syn.bench_sequence(
@@ -353,9 +380,10 @@ def host(phase: str, cam, imu) -> dict:
     for t in range(n):
         ts = t * syn.CAM_DT
         while i < len(imu_meas) and imu_meas[i][0] <= ts:
-            h.add_imu_measurement(*imu_meas[i])
+            tm, g, a = imu_meas[i]
+            h.add_imu_measurement(t0 + tm, g, a)
             i += 1
-        res = h.add_image(np.asarray(frames[t]), ts)
+        res = h.add_image(np.asarray(frames[t]), t0 + ts)
         mats.append(np.asarray(res.T_world_cam))
         stages.append(res.stage.value)
         n_kf += int(res.is_keyframe and t > 0)
@@ -363,7 +391,7 @@ def host(phase: str, cam, imu) -> dict:
                "kf": int(res.is_keyframe)}
         if phase == "host_vio":
             rec |= {"backend_k": h.backend.n_states,
-                    "backend_chi2": h.stats.get("backend_chi2")}
+                    "backend_chi2": _num(h.stats.get("backend_chi2"))}
         else:
             rec |= {"pgo_n": h._pgo_n, "loops": h.n_loops_closed}
         print(json.dumps(rec), flush=True)
@@ -379,7 +407,7 @@ def host(phase: str, cam, imu) -> dict:
                                               axis=-1).sum())}
     if phase == "host_vio":
         out |= {"backend_states": h.backend.n_states,
-                "backend_chi2": h.stats.get("backend_chi2")}
+                "backend_chi2": _num(h.stats.get("backend_chi2"))}
     else:
         gm = h.global_map
         out |= {"n_loops_closed": h.n_loops_closed, "pgo_nodes": h._pgo_n,
@@ -389,15 +417,52 @@ def host(phase: str, cam, imu) -> dict:
     return out
 
 
+def euroc_mono(n: int, cam) -> dict:
+    """The JAX FrameHandlerMono with examples/param/pinhole.yaml on the
+    first ``n`` frames of the vio input at EuRoC-epoch stamps."""
+    from svo_pro_universal_tpu.config import load_config
+    from svo_pro_universal_tpu.frontend.frame_handler import FrameHandlerMono
+    poses, frames, _ = syn.bench_sequence(n, 7, "cpu")
+    root = Path(__file__).resolve().parents[1]
+    h = FrameHandlerMono(load_config(str(root / "examples" / "param"
+                                         / "pinhole.yaml")), cam)
+    t0 = cs.EUROC_T0_NS * 1e-9
+    stages, mats, relocs = [], [], 0
+    for t in range(n):
+        res = h.add_image(np.asarray(frames[t]), t0 + t * syn.CAM_DT)
+        stages.append(res.stage.value)
+        mats.append(np.asarray(res.T_world_cam))
+        relocs += int(res.stage.name == "RELOCALIZING")
+        print(json.dumps({"k": t, "stage": res.stage.value,
+                          "n_tracked": res.n_tracked,
+                          "kf": int(res.is_keyframe)}), flush=True)
+    st = np.asarray(stages)
+    tr = np.nonzero(st == TRACKING)[0]
+    out = {"frames": n, "n_tracking_after_warmup": int(
+        (st[cs.EUROC_WARMUP:] == TRACKING).sum()),
+        "first_tracking_frame": int(tr[0]) if len(tr) else -1,
+        "relocalizing_frames": relocs}
+    if len(tr) > 3:
+        gt = np.stack([np.linalg.inv(poses[k])[:3, 3] for k in tr])
+        out["ate_m_tracked"] = float(ate_rmse(
+            np.stack([mats[k][:3, 3] for k in tr]), gt, align="sim3")[0])
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("phase", choices=("vio", "slam", "stepwise", "stereo",
-                                      "stereo_vio", "host_vio", "host_slam"))
-    ap.add_argument("--frames", type=int, default=cs.RIG_FRAMES)
+                                      "stereo_vio", "host_vio", "host_slam",
+                                      "euroc_mono"))
+    ap.add_argument("--epoch", action="store_true",
+                    help="EuRoC-epoch stamps for the host handlers")
+    ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--structure-pts", type=int, default=None)
     ap.add_argument("--solve", choices=("float32", "float64"),
                     default="float32")
     ap.add_argument("--no-zupt", action="store_true")
+    ap.add_argument("--port", action="store_true",
+                    help="host_vio: the port's handler on the CPU")
     args = ap.parse_args()
     patch_solve(args.solve)
     if args.no_zupt:
@@ -413,12 +478,22 @@ def main() -> None:
     if args.phase == "stepwise":
         stepwise(cam, imu)
         return
+    if args.phase == "euroc_mono":
+        n = args.frames or cs.EUROC_MONO_FRAMES
+        print(json.dumps({"phase": "euroc_mono", **euroc_mono(n, cam),
+                          "seconds": time.time() - t0}), flush=True)
+        return
     if args.phase in ("stereo", "stereo_vio", "host_vio", "host_slam"):
-        out = (host(args.phase, cam, imu) if args.phase.startswith("host")
-               else stereo(args.phase, args.frames, args.structure_pts))
+        t_epoch = cs.EUROC_T0_NS * 1e-9 if args.epoch else 0.0
+        out = (host(args.phase, cam, imu, t_epoch, args.frames, args.port)
+               if args.phase.startswith("host")
+               else stereo(args.phase, args.frames or cs.RIG_FRAMES,
+                           args.structure_pts))
         print(json.dumps({
             "phase": args.phase, "solve": args.solve,
             "zupt": not args.no_zupt, "structure_pts": args.structure_pts,
+            "epoch_stamps": args.epoch, "package": ("port" if args.port
+                                                    else "jax"),
             **out,
             "lm_iterations": STEPS["iterations"],
             "lm_zero_step_share": STEPS["zero"] / max(STEPS["iterations"],

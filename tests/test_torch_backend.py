@@ -52,7 +52,9 @@ from svo_pro_universal_tpu_torch.backend import device_interface as tdbe
 from svo_pro_universal_tpu_torch.backend import imu_factor as timf
 from svo_pro_universal_tpu_torch.backend import window_ba as twba
 from svo_pro_universal_tpu_torch.cameras import rig as trig
+from svo_pro_universal_tpu_torch.common.frame import make_empty_frame as tempty
 from svo_pro_universal_tpu_torch.frontend import imu_handler as tih
+from svo_pro_universal_tpu_torch.ops.pyramid import build_pyramid as tbuild
 from svo_pro_universal_tpu_torch.utils.indexing import segment_sum
 from svo_pro_universal_tpu_torch.utils.transform import SE3
 
@@ -755,3 +757,67 @@ def test_zero_motion_prior_needs_the_frontend_at_rest(moving):
     assert float(sr.window.zupt[1]) == pytest.approx(0.0 if moving
                                                      else rest)
     assert float(sr.window.zupt[0]) == pytest.approx(rest)
+
+
+def test_host_backend_api_at_epoch_stamps_matches_jax():
+    """``add_keyframe_device`` (the host handlers' backend API) at
+    EuRoC-epoch stamps (1403636579.763555584 s on), fed by each package's
+    ``ImuHandler`` with one 200 Hz stream, over S_WIN + 1 keyframes (one
+    marginalization). Where JAX casts the absolute stamp to float32 (the
+    step's ``F32(timestamp)``, the alignment buffer's last stamp, which
+    resolves 128 s there) and where the window's times are relative
+    float32 (``window_between``), the port gives the same values: the IMU
+    windows to the bit, ``abuf_last_ts`` equal, and the buffer's count,
+    factor flags, the window's state and IMU masks and its factors' dt
+    (1e-6) equal. A frame made at the epoch (common/frame.py) keeps JAX's
+    float32 stamp."""
+    t_epoch = 1403636579.763555584
+    tf = tempty(tbuild(torch.zeros((16, 16)), 1), N_FT, timestamp=t_epoch)
+    jf = jempty(jbuild(jnp.zeros((16, 16), jnp.float32), 1), N_FT,
+                timestamp=t_epoch)
+    assert tf.timestamp.dtype == torch.float32
+    assert tf.timestamp.item() == float(np.float32(jf.timestamp))
+    assert tf.timestamp.item() != t_epoch           # 128 s apart there
+    rng = np.random.default_rng(9)
+    jb, tb = _make_backends()
+    pool = _scene(rng)
+    _, pool_j, frame_j = _frontend(pool, rng)
+    pool_t = convert.pool(to_dict(pool_j), "cpu")
+    frame_t = convert.frame(to_dict(frame_j), "cpu")
+    ji, ti = jih.ImuHandler(JImuParams()), tih.ImuHandler(trig.ImuParams())
+    n_imu = 0
+    for i in range(S_WIN + 1):
+        ts, T = _backend_inputs(i, rng)
+        while n_imu * 0.005 <= ts + 0.01:
+            g = rng.normal(0, 0.02, 3).astype(np.float32)
+            a = (rng.normal(0, 0.2, 3) + [ACC, 0.0, G]).astype(np.float32)
+            ji.add_measurement(t_epoch + n_imu * 0.005, g, a)
+            ti.add_measurement(t_epoch + n_imu * 0.005, g, a)
+            n_imu += 1
+        if i:
+            last = t_epoch + _backend_inputs(i - 1, rng)[0]
+            wj = ji.window_between(last, t_epoch + ts)
+            wt = ti.window_between(last, t_epoch + ts)
+            for key in ("t", "gyro", "acc", "valid"):
+                np.testing.assert_array_equal(
+                    getattr(wt, key).numpy(), np.asarray(getattr(wj, key)),
+                    err_msg=key)
+        jb.add_keyframe_device(t_epoch + ts, frame_j._replace(T_cam_world=T),
+                               pool_j, imu_handler=ji)
+        tb.add_keyframe_device(
+            t_epoch + ts, frame_t._replace(T_cam_world=SE3(
+                _t(np.asarray(T.q)), _t(np.asarray(T.t)))),
+            pool_t, imu_handler=ti)
+    sj, st = jb.state, tb.state
+    assert tb.n_states == jb.n_states == S_WIN and tb._ts == jb._ts
+    assert st.abuf_last_ts == np.float32(sj.abuf_last_ts) == np.float32(
+        t_epoch + _backend_inputs(S_WIN, rng)[0])
+    assert int(st.abuf_n) == int(sj.abuf_n)
+    np.testing.assert_array_equal(st.abuf_fvalid.numpy(),
+                                  np.asarray(sj.abuf_fvalid))
+    for key in ("state_valid", "imu_valid"):
+        np.testing.assert_array_equal(getattr(st.window, key).numpy(),
+                                      np.asarray(getattr(sj.window, key)),
+                                      err_msg=key)
+    np.testing.assert_allclose(st.window.imu.dt.numpy(),
+                               np.asarray(sj.window.imu.dt), atol=1e-6)

@@ -108,6 +108,45 @@ def test_klt_gathers_match_plain_version(tile):
 
 
 @pytest.mark.gpu
+def test_edge_depth_gathers_match_plain_version():
+    """edge_depth's gather (N = 512 features, 24×24 tiles at levels 0..1,
+    as refine_depth_photometric cuts them): equal to extract_tiles_plain
+    in one launch, and one launch per GN iteration of the refinement."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run on the card with `python -m "
+                    "pytest --noconftest tests/test_torch_gpu.py -m gpu`")
+    from svo_pro_universal_tpu_torch.ops import edge_depth
+    from svo_pro_universal_tpu_torch.utils.transform import SE3
+    rng = np.random.default_rng(3)
+    pyr = torch.rand((5, 480, 752), device="cuda") * 255
+    n = 512
+    lvl = torch.as_tensor(rng.integers(0, 2, n), device="cuda")
+    cyx = torch.as_tensor(np.stack([
+        rng.uniform(0, 480, n), rng.uniform(0, 752, n)], -1).astype(
+            np.float32), device="cuda") / (1 << lvl)[:, None]
+    before = cuda_tiles.GATHER_TILES.launches
+    got = cuda_tiles.extract_tiles(pyr, lvl, cyx, 24, 24)
+    assert cuda_tiles.GATHER_TILES.launches == before + 1
+    want = cuda_tiles.extract_tiles_plain(pyr, lvl, cyx, 24, 24)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    cam = Camera.pinhole(460.0, 460.0, 376.0, 240.0, 752, 480,
+                         device="cuda")
+    uv = torch.stack([cyx[:, 1], cyx[:, 0]], -1) * (1 << lvl)[:, None]
+    f = torch.nn.functional.normalize(torch.cat(
+        [(uv - torch.tensor([376.0, 240.0], device="cuda")) / 460.0,
+         torch.ones((n, 1), device="cuda")], -1), dim=-1)
+    T = SE3(torch.tensor([1.0, 0.0, 0.0, 0.0], device="cuda"),
+            torch.tensor([0.05, 0.0, 0.0], device="cuda"))
+    before = cuda_tiles.GATHER_TILES.launches
+    out = edge_depth.refine_depth_photometric(
+        pyr, cam, T, f, torch.rand((n, 64), device="cuda") * 255,
+        torch.full((n,), 2.0, device="cuda"), lvl,
+        torch.ones(n, dtype=torch.bool, device="cuda"), n_iter=6)
+    assert cuda_tiles.GATHER_TILES.launches == before + 6
+    assert torch.isfinite(out.depth).all()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["mono", "prior_alpha_beta", "two_cameras",
                                   "n768"])
 def test_align_level_matches_plain_version(case):

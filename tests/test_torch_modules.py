@@ -159,8 +159,10 @@ def test_detector_matches_jax():
                               np.asarray(getattr(jd, name))), name
     _close(td.score, jd.score, rtol=1e-6)
     _close(td.grad, jd.grad, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tdet.detect_features(tp, _t(occ), detector_type="shitomasi", **kw)
+    # every detector type is ported (tests/test_torch_detectors.py holds
+    # each against JAX); an unknown name raises
+    with pytest.raises(ValueError, match="unknown detector_type"):
+        tdet.detect_features(tp, _t(occ), detector_type="harris", **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -140,14 +140,19 @@ def test_frame_handler_defaults_to_the_card(monkeypatch):
 
 def test_unported_options_raise():
     """FivePoint initialization is ported (it constructs and starts in
-    FIRST_FRAME); the other detectors still raise."""
+    FIRST_FRAME), and so is every detector of the JAX package; only a
+    detector name the JAX package does not know raises."""
     cam = Camera.pinhole(150.0, 150.0, 80.0, 60.0, 160, 120)
     cfg = port_config(slice_config())
     cfg.init.init_method = "FivePoint"
     pipe = DevicePipelineMono(cfg, cam, device="cpu")
     assert pipe.stage == Stage.FIRST_FRAME
     assert pipe.world.init_px.shape == (cfg.capacity.max_fts, 2)
-    cfg = port_config(slice_config())
-    cfg.detector.detector_type = "shitomasi"
-    with pytest.raises(NotImplementedError, match="later slice"):
+    for kind in ("fast", "grad", "shitomasi", "shitomasi_grad", "sobel",
+                 "canny", "gradhm", "allpixels"):
+        cfg = port_config(slice_config())
+        cfg.detector.detector_type = kind
+        DevicePipelineMono(cfg, cam, device="cpu")
+    cfg.detector.detector_type = "harris"
+    with pytest.raises(ValueError, match="unknown detector_type"):
         DevicePipelineMono(cfg, cam, device="cpu")
