@@ -13,8 +13,9 @@ host handlers a user calls (``FrameHandlerMono`` / ``VIO`` / ``Stereo`` /
 backends (``BackendInterface``, ``GlobalMap``), then the entry points a user
 starts from (the EuRoC runners on ASL folders at EuRoC-epoch stamps,
 checkpoints), every detector and the edge-depth ops, all at EuRoC size,
-752×480, with the capacities of bench.py:159-184. Phases, one JSON line
-each:
+752×480, with the capacities of bench.py:159-184, and last the sharded
+programs of ``parallel/`` on four ranks sharing the card. Phases, one JSON
+line each:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA.
 2. build    every csrc/*.cu compiled with nvcc for sm_90a, in parallel.
@@ -37,13 +38,15 @@ each:
             them) with the prior and alpha/beta off and on (N = 360), two
             pairs of cameras on one body (one the EuRoC stereo rig), and
             N = 768: pose within 1e-4 rad / 1e-4·depth, n_tracked equal.
+            fused_evaluate also at N = 90, one rank's share of the
+            multidevice alignment (the shape the kernels line reports).
 4. slice    40 frames of a textured plane: TRACKING from frame 0 on,
             n_tracked ≥ quality_min_fts, ≥ 2 keyframes, the gathers
             launched on the path and align_level once per pyramid level of
             every sparse alignment, the standalone fused_evaluate not at
             all (counts reset just before the run); frames/s and per-stage
             ms (CUDA events).
-   profile  3 frames under torch.profiler: device busy ms and kernel
+   profile  2 frames under torch.profiler: device busy ms and kernel
             launches per frame, idle share, host syncs per frame.
 5. cpu      the same first frames through the port on the CPU; the poses
             must agree with the card's within 5 mm.
@@ -62,7 +65,7 @@ each:
             fused_evaluate never.
    determinism  the first 40 frames again in a second pipeline: the pose
             trace must equal the first run's to the bit.
-   vio_profile  4 frames, the second a backend call, as the profile phase.
+   vio_profile  2 frames, the second a backend call, as the profile phase.
    vio_cpu  the same frames through the bootstrap + 2 on the CPU: the same
             stages and poses within 5 mm of a card run.
 7. slam     ``DevicePipelineSLAM`` in bench.py's SLAM configuration
@@ -83,7 +86,7 @@ each:
             the CPU (match and inlier counts equal, translation within
             1e-3), and a loop closure of the run's final pose graph
             (128-node capacity) on both: nodes within 1e-3, ms per call.
-   slam_profile  4 frames around the first verified loop, else the first
+   slam_profile  2 frames around the first verified loop, else the first
             verification, in a second run: device busy ms, launches, idle
             share, and the port's stream synchronizations per frame from
             the profiler's own trace (no sync debug mode in the window).
@@ -113,7 +116,7 @@ each:
             ``STEREO_VIO_SOLVE``): as stereo, plus backend ms per call and
             the voided share; gated also on backend ≥ 2 states with a finite
             chi2 > 0 (tests/test_device_pipeline_stereo_vio.py:58-75).
-   stereo_vio_profile  4 frames holding a backend call, as vio_profile.
+   stereo_vio_profile  2 frames holding a backend call, as vio_profile.
    array    ``DevicePipelineArray``: three copies of EuRoC's cam0 in
             tests/test_pipeline_array.py's layout (+0.11 m in x, +0.09 m in
             y), degrade seeds 7, 8, 9, 60 frames, 10 warm-up; the stereo
@@ -189,6 +192,30 @@ each:
             into the second, card against CPU (levels, response 1e-3,
             converged sets, depths 1e-3), one gather_tiles launch per GN
             iteration.
+11. multidevice  one spawn of four ranks sharing the card
+            (``parallel.mesh.launch``; gloo, since NCCL refuses two ranks on
+            one device), each step against the one-rank result this process
+            computes on the card: ``distributed_align`` of the vio
+            configuration's last alignment after 12 frames (90 features a
+            rank; pose within 1e-5, exactly levels × (max_iter + 1)
+            fused_evaluate launches a rank, gather_tiles launched);
+            ``distributed_seed_update`` of bench.py's first frame's 360
+            features against its second frame at the true pose (ftype and
+            counts equal, state within 1e-5 relative);
+            ``distributed_optimize`` of bench.py's BA window (8 states, 256
+            landmark slots, 2048 rows: its 1024 drop rows over 4 shards),
+            perturbed
+            (p, q within 2e-4, chi2 2%, no row dropped, the counted bytes
+            equal to ``comms_volume_per_solve``; bench.py's ba_solve_ms and
+            ba_iters_per_s of one rank); ``GlobalMap(mesh=...)`` at the
+            default capacities fed 40 keyframes on (2, 2) over (h, f) and
+            (4, 1) over (h,) (poses, landmarks 1e-3 of one rank, chi2 2%,
+            no row dropped, mean position error < 0.03 m; one rank's run on
+            the CPU printed beside it); the dry run;
+            the alignment and BA again in the same ranks (equal to the bit,
+            gated; the seed state's bit-equality with one rank recorded).
+            Four ranks on one card measure correctness and bytes, not
+            scale-out.
 
 The ``kernels`` line's ``launches`` are the vio run's, counted from 0 just
 before it (``launches_mono_slice``: the slice run's; ``launches_slam``,
@@ -197,11 +224,13 @@ before it (``launches_mono_slice``: the slice run's; ``launches_slam``,
 ``launches_host_stereo``, ``launches_host_array``, ``launches_checkpoint``,
 ``launches_euroc``, ``launches_euroc_device``, ``launches_euroc_mono``,
 ``launches_euroc_stereo``, ``launches_detectors``,
-``launches_edge_depth``: those runs').
+``launches_edge_depth``: those runs'; ``launches_multidevice``: the
+multidevice steps', summed over the ranks).
 ``python3 chip_smoke.py --only host_vio,euroc,detectors,...`` runs just the
 named host and entry-point phases (host_mono, checkpoint, host_vio,
 host_vio_epoch, host_slam, host_stereo, host_array, host_backends, euroc,
-euroc_mono, euroc_stereo, detectors, edge_depth) after the build (a
+euroc_mono, euroc_stereo, detectors, edge_depth, multidevice) after the
+build (a
 development call: no kernels or result line; ``host_vio_epoch``, host_vio
 at EuRoC-epoch stamps, and ``epoch_effect``, its gap to host_vio a frame,
 run only there).
@@ -229,11 +258,14 @@ from svo_pro_universal_tpu_torch.backend import pgo as pgo_mod
 from svo_pro_universal_tpu_torch.backend.global_map import (
     GlobalMap, GlobalMapOptions)
 from svo_pro_universal_tpu_torch.backend.interface import BackendInterface
+from svo_pro_universal_tpu_torch.backend import window_ba as wba
 from svo_pro_universal_tpu_torch.backend.window_ba import BAOptions
 from svo_pro_universal_tpu_torch.cameras.projections import (
     Camera, DistortionModel, ProjectionModel)
 from svo_pro_universal_tpu_torch.cameras import projections as proj
 from svo_pro_universal_tpu_torch.cameras.rig import ImuParams, load_rig_yaml
+from svo_pro_universal_tpu_torch.common import seed as seed_mod
+from svo_pro_universal_tpu_torch.common.types import FeatureType
 from svo_pro_universal_tpu_torch.config import Config
 from svo_pro_universal_tpu_torch.evaluation import (
     ate_rmse, load_trajectory_tum)
@@ -254,16 +286,23 @@ from svo_pro_universal_tpu_torch.frontend.pipeline_vio import (
     DevicePipelineVIO)
 from svo_pro_universal_tpu_torch.frontend.slam import FrameHandlerSLAM
 from svo_pro_universal_tpu_torch.ops import _cuda, cuda_align, cuda_tiles
+from svo_pro_universal_tpu_torch.ops import depth_filter as df_mod
 from svo_pro_universal_tpu_torch.ops import detector as det_mod
 from svo_pro_universal_tpu_torch.ops import edge_depth, interp
+from svo_pro_universal_tpu_torch.ops import matcher as matcher_mod
 from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
 from svo_pro_universal_tpu_torch.ops import tiles
 from svo_pro_universal_tpu_torch.ops.pyramid import (
     build_pyramid, image_to_float, level_view)
+from svo_pro_universal_tpu_torch.parallel.mesh import choose_backend, launch
+from svo_pro_universal_tpu_torch.parallel.sharded_ba import (
+    comms_volume_per_solve, partition_observations)
 from svo_pro_universal_tpu_torch.runners import (
     run_euroc_mono, run_euroc_stereo, run_euroc_vio)
 from svo_pro_universal_tpu_torch.testing import asl
 from svo_pro_universal_tpu_torch.testing import gather_shapes as gs
+from svo_pro_universal_tpu_torch.testing.parallel_cases import (
+    global_map_step, run_steps)
 from svo_pro_universal_tpu_torch.testing import synthetic as syn
 from svo_pro_universal_tpu_torch.utils import stage_profile
 from svo_pro_universal_tpu_torch.utils.transform import (
@@ -488,14 +527,10 @@ def kernel_cases(bw: float) -> tuple[list, dict]:
     w = torch.as_tensor((rng.uniform(size=n) > 0.3).astype(np.float32),
                         device=dev)
     ab = torch.tensor([0.03, -1.5], device=dev)
-    for label, ty, tx in (
-            ("fractional",
-             rng.uniform(0.0, R - P - 1.0, n), rng.uniform(0.0, T - P - 1.0,
-                                                           n)),
-            ("integer", np.full(n, float(R - P)), np.full(n, float(T - P)))):
+    def fe_case(label: str, m: int, ty, tx) -> None:
         ty = torch.as_tensor(ty.astype(np.float32), device=dev)
         tx = torch.as_tensor(tx.astype(np.float32), device=dev)
-        args = (tile_data, ty, tx, w, ref, jac, ab, P)
+        args = (tile_data[:m], ty, tx, w[:m], ref[:m], jac[:m], ab, P)
         run = lambda: cuda_align.fused_evaluate(*args)  # noqa: E731
         plain = lambda: cuda_align.fused_evaluate_plain(*args)  # noqa: E731
         Hk, gk, ck, nk = run()
@@ -509,18 +544,28 @@ def kernel_cases(bw: float) -> tuple[list, dict]:
         err = max(float((Hk - Hp).abs().max()), float((gk - gp).abs().max()),
                   abs(float(ck) - float(cp)), abs(float(nk) - float(np_)))
         if not ok:
-            fail(f"fused_evaluate ({label}): kernel vs plain error {err}")
-        nbytes = n * ((P + 1) ** 2 + 3 + P * P * 9) * 4 + 74 * 4 + 8
-        flops = n * P * P * (6 + 3 + 2 * 64 + 2 * 8 + 3)
+            fail(f"fused_evaluate ({label}, N={m}): kernel vs plain error "
+                 f"{err}")
+        nbytes = m * ((P + 1) ** 2 + 3 + P * P * 9) * 4 + 74 * 4 + 8
+        flops = m * P * P * (6 + 3 + 2 * 64 + 2 * 8 + 3)
         bound = max(nbytes / bw, flops / _FP32_FLOPS) * 1e3
         cases.append(dict(
-            name="fused_evaluate", n=n, tile=[R, T], origins=label,
+            name="fused_evaluate", n=m, tile=[R, T], origins=label,
             max_abs_err=err, ms=gs.cuda_ms(run), plain_ms=gs.cuda_ms(plain),
             library_ms=None, bound_ms=bound,
             bound_by="bytes" if nbytes / bw >= flops / _FP32_FLOPS
             else "operations"))
-    # the representative shape of each kernel on the main path
-    main["fused_evaluate"] = cases[-2]
+
+    fe_case("fractional", n, rng.uniform(0.0, R - P - 1.0, n),
+            rng.uniform(0.0, T - P - 1.0, n))
+    fe_case("integer", n, np.full(n, float(R - P)), np.full(n, float(T - P)))
+    # the multidevice path's shape: one rank's 90 of the 360 features
+    m = 360 // MD_RANKS
+    fe_case("fractional", m, rng.uniform(0.0, R - P - 1.0, m),
+            rng.uniform(0.0, T - P - 1.0, m))
+    # the representative shape of each kernel on its path (fused_evaluate:
+    # the multidevice path's)
+    main["fused_evaluate"] = cases[-1]
     main["align_level"] = align_cases(bw, cases)
     return cases, main
 
@@ -774,7 +819,7 @@ VIO_FRAMES = 140             # bench.py:186-187
 VIO_WARMUP = 20
 VIO_CPU_TRACKING = 2         # tracking frames after the bootstrap, on CPU
 VIO_PROFILE_AT = 40          # the profiled window holds the first backend
-VIO_PROFILE_FRAMES = 4       # call from this frame on, as its second frame
+VIO_PROFILE_FRAMES = 2       # call from this frame on, as its second frame
 VIO_STAGES = STAGES + ("_branch_init", "_klt_track", "_vio_backend_step")
 BACKEND_PROGRAMS = ("_step_program", "_marginalize_program",
                     "_apply_program")
@@ -1041,7 +1086,7 @@ def vio_phase(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 SLAM_WARMUP = 16                   # bench.py:311
-SLAM_PROFILE_FRAMES = 4
+SLAM_PROFILE_FRAMES = 2
 SLAM_STAGES = VIO_STAGES + ("_run_slam_kf", "_snapshot", "_close_loop",
                             "_gm_refine", "_gm_feedback")
 # the JAX package on the CPU, same scene and configuration, float32 as it
@@ -1180,7 +1225,7 @@ def slam_phase(smi: str) -> dict:
 
     slam_loop_parts(smi, pipe, first_cand)
 
-    # ---- profile: 7 frames around the first verified loop, else the first
+    # ---- profile: 2 frames around the first verified loop, else the first
     # verification (a second run of the same frames; the card's runs are
     # deterministic)
     at = (loop_frames or cand_frames or [n_frames - SLAM_PROFILE_FRAMES])[0]
@@ -1209,7 +1254,7 @@ RIG_WARMUP = 20
 STEREO_SEEDS = (7, 8)              # degrade seeds of cam0 and cam1
 STEREO_CPU_TRACKING = 3            # tracking frames after the bootstrap
 STEREO_JOINT_FRAMES = 60
-STEREO_PROFILE_AT = 21             # the first window holds frame 24's call
+STEREO_PROFILE_AT = 23             # the first window holds frame 24's call
 ARRAY_FRAMES = 60
 ARRAY_WARMUP = 10
 ARRAY_SEEDS = (7, 8, 9)
@@ -2792,6 +2837,358 @@ def edge_depth_phase(smi: str, poses: list, frames: list) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-device paths, four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MD_RANKS = 4
+MD_VIO_FRAMES = 12                 # VIO frames run for a tracked alignment
+#                                    (TRACKING from frame 7)
+MD_ALIGN_TOL = 1e-5                # tests/test_multichip.py:43-46
+MD_SEED_RTOL = 1e-5
+MD_SEED_DEPTH = (3.4, 1.4)         # seeds' mean depth (init's expected
+#                                    average) and min depth (the sphere's
+#                                    nearest point), m
+MD_BA_SHAPE = dict(S=8, n_landmarks=200, L=256, obs_per_state=120)
+MD_BA_NO = 2048                    # bench.py's No = 1024 (bench.py:390)
+#                                    drops rows over 4 shards: a shard's
+#                                    landmarks own up to 503 of its 256
+MD_BA_ITERS = 3                    # bench.py:392
+MD_BA_FOCAL = 460.0                # bench.py:394
+MD_BA_TOL = 2e-4                   # p, q: tests/test_sharded_ba.py:92-97
+MD_BA_CHI2 = 0.02
+MD_GM_KEYFRAMES = 40               # > 32: the ring evicts
+MD_GM_TOL = 1e-3                   # m: host_backends' bound on a GlobalMap
+#                                    run with eviction across two roundings
+#                                    (card vs CPU); test_global_map_dcn.py's
+#                                    5e-4 holds one solve (the CPU test keeps
+#                                    it), and 40 keyframes solve 11 times,
+#                                    each keep-best LM accept/reject turning
+#                                    on rounding: the line's ``card_vs_cpu``
+#                                    shows how far rounding alone moves one
+#                                    rank's run
+MD_GM_ACCURACY = 0.03              # m, mean position error of states 1..:
+#                                    tests/test_global_map_dcn.py:206-221
+MD_GM_MESHES = (((2, 2), ("h", "f")), ((4, 1), ("h",)))
+
+
+def perturbed_ba_window(No: int):
+    """bench.py's window (``synthetic_ba_window``) with ``No`` rows, its
+    states perturbed as tests/test_sharded_ba.py:70-79 does."""
+    from svo_pro_universal_tpu_torch.utils.transform import (
+        quat_multiply, quat_normalize, so3_exp)
+    w = syn.synthetic_ba_window(**MD_BA_SHAPE, No=No)
+    rng = np.random.default_rng(42)
+    dq = [torch.tensor([1.0, 0.0, 0.0, 0.0])]
+    for _ in range(w.S - 1):
+        dq.append(so3_exp(torch.as_tensor(
+            rng.normal(0, 0.02, 3).astype(np.float32))))
+    dp = np.concatenate([np.zeros((1, 3)),
+                         rng.normal(0, 0.04, (w.S - 1, 3))])
+    return w._replace(q=quat_normalize(quat_multiply(w.q, torch.stack(dq))),
+                      p=w.p + torch.as_tensor(dp.astype(np.float32)))
+
+
+def md_alignment_input(poses: list, frames: list, imu_meas: list, dev):
+    """The vio configuration's pipeline on bench.py's input for
+    ``MD_VIO_FRAMES`` frames; the last sparse alignment's input (a tracked
+    frame against the frame before it), state and options."""
+    cam = Camera.pinhole(*syn.BENCH_INTRINSICS, syn.BENCH_W, syn.BENCH_H)
+    run = VioRun(cam, vio_config(), imu_meas, dev, MD_VIO_FRAMES)
+    calls = []
+    run_fn = sia.run
+
+    def recorded(inputs, state0, opts, *a, **k):
+        calls.append((inputs, state0, opts))
+        return run_fn(inputs, state0, opts, *a, **k)
+    sia.run = recorded
+    try:
+        run.feed(frames, 0, MD_VIO_FRAMES)
+    finally:
+        sia.run = run_fn
+    _, meta = run.pipe.drain()
+    if not calls or meta[-1, 0] != Stage.TRACKING.value:
+        fail(f"multidevice: frame {MD_VIO_FRAMES - 1} of the vio input not "
+             f"tracked (stages {meta[:, 0].tolist()})")
+    inputs, state0, opts = calls[-1]
+    return inputs[0], state0, opts
+
+
+def md_seed_input(poses: list, frames: list, dev):
+    """The 360 features detected on bench.py's first frame (the vio
+    configuration's detector) as fresh seeds, and the second frame with
+    the true relative pose: ``update_seeds``' arguments on ``dev``."""
+    cfg = vio_config()
+    cam = Camera.pinhole(*syn.BENCH_INTRINSICS, syn.BENCH_W, syn.BENCH_H,
+                         device=dev)
+    pyr0 = build_pyramid(image_to_float(np.asarray(frames[0]), dev),
+                         cfg.n_pyr_levels)
+    pyr1 = build_pyramid(image_to_float(np.asarray(frames[1]), dev),
+                         cfg.n_pyr_levels)
+    cs = cfg.detector.cell_size
+    n_cols, n_rows = -(-syn.BENCH_W // cs), -(-syn.BENCH_H // cs)
+    det = det_mod.detect_features(
+        pyr0, torch.zeros((n_cols * n_rows,), dtype=torch.bool, device=dev),
+        cs, n_cols, n_rows, max_features=cfg.capacity.max_fts,
+        threshold_primary=cfg.detector.threshold_primary,
+        threshold_secondary=cfg.detector.threshold_secondary,
+        threshold_shitomasi=cfg.detector.threshold_shitomasi,
+        min_level=0, max_level=cfg.detector.max_level,
+        detector_type=cfg.detector.detector_type)
+    n = det.px.shape[0]
+    ones = torch.ones((n,), device=dev)
+    ftype = torch.where(det.valid, det.ftype, int(FeatureType.INVALID))
+    T = se3_of(np.asarray(poses[1]) @ np.linalg.inv(poses[0]))
+    args = (pyr0, pyr1, cam, SE3(T.q.to(dev), T.t.to(dev)), det.px,
+            proj.backproject(cam, det.px), det.grad, det.level, ftype,
+            seed_mod.make(ones * MD_SEED_DEPTH[0], ones * MD_SEED_DEPTH[1]),
+            torch.tensor(1.0 / MD_SEED_DEPTH[1], device=dev))
+    kwargs = dict(max_search_level=cfg.detector.max_level,
+                  sigma2_convergence_threshold=(
+                      cfg.depth_filter.seed_convergence_sigma2_thresh))
+    return args, kwargs
+
+
+def _on_cpu(x):
+    """``x`` (tensors, cameras, tuples and NamedTuples of them) on the
+    CPU, to be pickled to the ranks."""
+    if isinstance(x, tuple):
+        vals = [_on_cpu(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x.to("cpu")
+
+
+def _sum_launches(counts: list) -> dict:
+    total = {k.name: 0 for k in _cuda.KERNELS}
+    for c in counts:
+        for k, v in c.items():
+            total[k] += v
+    return total
+
+
+def gm_gap(a: dict, b: dict) -> tuple:
+    """(pose gap, landmark gap by id, same ids, chi2 gap relative) of two
+    ``global_map_step`` results."""
+    same = set(a["lm_ids"].tolist()) == set(b["lm_ids"].tolist())
+    lm = (float(np.abs(a["lm_pos"][np.argsort(a["lm_ids"])]
+                       - b["lm_pos"][np.argsort(b["lm_ids"])]).max())
+          if same else float("inf"))
+    return (float(np.abs(a["poses"] - b["poses"]).max()), lm, same,
+            abs(a["chi2"] - b["chi2"]) / max(b["chi2"], 1.0))
+
+
+def gm_error(g: dict) -> float:
+    """Mean position error of a global map's states after its first, against
+    the feed's true positions (test_global_map_dcn.py's accuracy gate)."""
+    err = np.linalg.norm(g["poses"] - g["true_p"][g["kf_ids"]], axis=-1)
+    return float(err[1:].mean())
+
+
+def multidevice_phase(smi: str, device: str = "cuda") -> dict:
+    """The sharded programs of ``parallel/`` in one spawn of four ranks
+    sharing the card (gloo: NCCL refuses two ranks on one device), each
+    step held against the one-rank result this process computes on the
+    card: alignment, the seed update, the window BA, the partitioned
+    global map at (2, 2) and (4, 1), the dry run; the alignment and the BA
+    run twice in the same ranks and must agree to the bit. Four ranks on one
+    card share its SMs, and gloo stages every collective through host
+    memory: the times measure correctness and bytes, not scale-out.
+    Returns the launches summed over the ranks and steps. (``device`` is
+    for a rehearsal on the CPU.)"""
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    bench = syn.bench_sequence(MD_VIO_FRAMES, 7, dev)
+    inp, state0, aopts = md_alignment_input(*bench, dev)
+    levels = aopts.max_level - aopts.min_level + 1
+    seed_args, seed_kw = md_seed_input(bench[0], bench[1], dev)
+    w = perturbed_ba_window(MD_BA_NO)
+    wp, ba_dropped = partition_observations(w, MD_RANKS)
+    ba_dropped_1024 = partition_observations(
+        perturbed_ba_window(1024), MD_RANKS)[1]
+    bopts = BAOptions(max_iter=MD_BA_ITERS)
+    gm_opts = GlobalMapOptions()
+    lm = np.random.default_rng(7).uniform(
+        [-2, -2, 2], [2, 2, 6], (80, 3)).astype(np.float32)
+
+    # one rank on the card: the references
+    single_align, _ = sia.run([inp], state0, aopts)
+    align_ms = gs.cuda_ms(lambda: sia.run([inp], state0, aopts), 1, 3)
+    single_seeds = df_mod.update_seeds(
+        *seed_args[:3], seed_args[2], *seed_args[3:], **seed_kw,
+        matcher_opts=matcher_mod.MatcherOptions(max_epi_search_steps=32))
+    wp_dev = wba.tree_map(lambda x: x.to(dev), wp)
+    focal = torch.tensor(MD_BA_FOCAL, device=dev)
+    Tcb = SE3.identity(device=dev)
+    single_w, single_chi2, _ = wba.optimize(wp_dev, Tcb, focal, bopts)
+    single_ba_ms = gs.cuda_ms(lambda: wba.optimize(wp_dev, Tcb, focal,
+                                                   bopts), 1, 3)
+    bench_w = syn.synthetic_ba_window(**MD_BA_SHAPE, No=1024, device=dev)
+    ba_solve_ms = gs.cuda_ms(lambda: wba.optimize(bench_w, Tcb, focal,
+                                                  bopts), 1, 3)
+    single_gm = global_map_step(dev, None, gm_opts, lm, MD_GM_KEYFRAMES,
+                                probe_shards=MD_RANKS)
+    # the same run on the CPU: how far rounding alone moves it
+    cpu_gm = global_map_step("cpu", None, gm_opts, lm, MD_GM_KEYFRAMES)
+    ref_s = time.perf_counter() - t_phase
+
+    steps = [
+        ("align", dict(shape=(MD_RANKS,), inp=_on_cpu(inp),
+                       state0=_on_cpu(state0), opts=aopts, repeats=2,
+                       profile=dev.type == "cuda")),
+        ("seeds", dict(shape=(MD_RANKS,), args=_on_cpu(seed_args),
+                       kwargs=seed_kw)),
+        ("ba", dict(shape=(MD_RANKS,), w=wp, T_cam_body=SE3.identity(),
+                    focal=torch.tensor(MD_BA_FOCAL), opts=bopts, repeats=2)),
+        *[("global_map", dict(shape=shape, axes=axes, opts=gm_opts, lm=lm,
+                              n_kf=MD_GM_KEYFRAMES))
+          for shape, axes in MD_GM_MESHES],
+        ("dryrun", dict(n=MD_RANKS))]
+    c0 = time.perf_counter()
+    rank_dev = None if dev.type == "cuda" else device
+    ranks = launch(MD_RANKS, run_steps, rank_dev, steps, device=rank_dev)
+    spawn_s = time.perf_counter() - c0
+
+    # alignment
+    q0 = single_align.T_icur_iref.q.cpu()
+    t0 = single_align.T_icur_iref.t.cpu()
+    align_gap = max(max(float((a["q"] - q0).abs().max()),
+                        float((a["t"] - t0).abs().max()))
+                    for r in ranks for a in r["align"])
+    align_fe = [a["launches"]["fused_evaluate"] for r in ranks
+                for a in r["align"]]
+    align_gt = [a["launches"]["gather_tiles"] for r in ranks
+                for a in r["align"]]
+    align_repeat = all(torch.equal(r["align"][0][k], r["align"][1][k])
+                       for r in ranks for k in ("q", "t", "alpha", "beta",
+                                                "chi2"))
+    prof = ranks[0]["align"][-1].get("profile")
+    # seeds
+    s_single = single_seeds.seed_state.cpu()
+    seeds_equal = all(
+        torch.equal(r["seeds"]["ftype"], single_seeds.ftype.cpu())
+        and r["seeds"]["n_updated"] == int(single_seeds.n_updated)
+        and r["seeds"]["n_converged"] == int(single_seeds.n_converged)
+        for r in ranks)
+    seed_gap = max(float(((r["seeds"]["seed_state"] - s_single).abs()
+                          / s_single.abs().clamp(min=1e-12)).max())
+                   for r in ranks)
+    seeds_bits = all(torch.equal(r["seeds"]["seed_state"], s_single)
+                     for r in ranks)
+    # BA
+    sp, sq = single_w.p.cpu(), single_w.q.cpu()
+    ba_gap = max(max(float((b["p"] - sp).abs().max()),
+                     float((b["q"] - sq).abs().max()))
+                 for r in ranks for b in r["ba"])
+    ba_chi2_rel = max(abs(b["chi2"] - float(single_chi2))
+                      / max(float(single_chi2), 1.0)
+                      for r in ranks for b in r["ba"])
+    vol = comms_volume_per_solve(w.S, MD_BA_ITERS)
+    ba_bytes = [b["comm_bytes"]["all_reduce"] for r in ranks
+                for b in r["ba"]]
+    ba_repeat = all(torch.equal(r["ba"][0][k], r["ba"][1][k])
+                    for r in ranks for k in ("p", "q", "lm_pos"))
+    # global map
+    gm = {}
+    for i, (shape, axes) in enumerate(MD_GM_MESHES):
+        key = "global_map" if i == 0 else f"global_map#{i + 1}"
+        outs = [r[key] for r in ranks]
+        gaps = [gm_gap(o, single_gm) for o in outs]
+        gm[f"{shape} over {axes}"] = dict(
+            pose_gap_m=max(g[0] for g in gaps),
+            landmark_gap_m=max(g[1] for g in gaps),
+            same_ids=all(g[2] for g in gaps),
+            chi2=outs[0]["chi2"], chi2_rel_gap=max(g[3] for g in gaps),
+            mean_pos_err_m=max(gm_error(o) for o in outs),
+            last_dropped_obs=[o["last_dropped_obs"] for o in outs],
+            feed_wall_ms=outs[0]["feed_wall_ms"],
+            final_solve_wall_ms=outs[0]["wall_ms"],
+            bytes_final_solve=outs[0]["comm_bytes"])
+    cpu_gap = gm_gap(cpu_gm, single_gm)
+    dry = [r["dryrun"]["result"] for r in ranks]
+    launches = _sum_launches(
+        [a["launches"] for r in ranks for a in r["align"]]
+        + [r["seeds"]["launches"] for r in ranks]
+        + [b["launches"] for r in ranks for b in r["ba"]]
+        + [r[k]["launches"] for r in ranks
+           for k in ("global_map", "global_map#2", "dryrun")])
+    emit({"phase": "multidevice", "card": smi, "ranks": MD_RANKS,
+          "backend": choose_backend(MD_RANKS, rank_dev),
+          "note": "4 ranks share one card: correctness and bytes, not "
+                  "scale-out",
+          "spawn_s": spawn_s, "references_s": ref_s,
+          "align": dict(
+              features=int(inp.px_ref.shape[0]),
+              per_rank=int(inp.px_ref.shape[0]) // MD_RANKS, levels=levels,
+              max_iter=aopts.max_iter, pose_gap=align_gap,
+              fused_evaluate_per_rank=align_fe,
+              gather_tiles_per_rank=align_gt, bit_repeat=align_repeat,
+              rank_wall_ms=[a["wall_ms"] for a in ranks[0]["align"]],
+              single_rank_ms=align_ms,
+              bytes_per_rank=ranks[0]["align"][0]["comm_bytes"],
+              fused_evaluate_profile=prof),
+          "seeds": dict(
+              n=int(seed_args[4].shape[0]),
+              n_updated=int(single_seeds.n_updated),
+              n_converged=int(single_seeds.n_converged),
+              ftype_and_counts_equal=seeds_equal, state_rel_gap=seed_gap,
+              bit_equal=seeds_bits, rank_wall_ms=ranks[0]["seeds"]["wall_ms"],
+              bytes_per_rank=ranks[0]["seeds"]["comm_bytes"]),
+          "ba": dict(
+              window=MD_BA_SHAPE | {"No": MD_BA_NO}, n_dropped=ba_dropped,
+              n_dropped_at_No_1024=ba_dropped_1024, pose_gap=ba_gap,
+              chi2=float(single_chi2), chi2_rel_gap=ba_chi2_rel,
+              bytes_counted=ba_bytes, comms_volume_per_solve=vol,
+              dcn_comms_global_map=comms_volume_per_solve(32, 4),
+              bit_repeat=ba_repeat,
+              rank_wall_ms_per_solve=[b["wall_ms"] for b in ranks[0]["ba"]],
+              single_rank_ms_same_window=single_ba_ms,
+              ba_solve_ms=ba_solve_ms,
+              ba_iters_per_s=MD_BA_ITERS / (ba_solve_ms / 1e3)),
+          "global_map": gm,
+          "global_map_single": dict(
+              chi2=single_gm["chi2"], keyframes=len(single_gm["kf_ids"]),
+              landmarks=int(len(single_gm["lm_ids"])),
+              mean_pos_err_m=gm_error(single_gm),
+              contiguous_layout_dropped=single_gm["probe_dropped"],
+              card_vs_cpu=dict(pose_gap_m=cpu_gap[0],
+                               landmark_gap_m=cpu_gap[1],
+                               chi2_rel_gap=cpu_gap[3])),
+          "dryrun": dict(chi2_align=float(dry[0]["chi2_align"]),
+                         n_updated=int(dry[0]["n_updated"]),
+                         chi2_ba=float(dry[0]["chi2_ba"]),
+                         chi2_ba_2d=float(dry[0]["chi2_ba_2d"])),
+          "launches_summed_over_ranks": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    if align_gap > MD_ALIGN_TOL:
+        fail(f"multidevice: 4-rank alignment {align_gap} from one rank")
+    if not (align_repeat and ba_repeat):
+        fail(f"multidevice: a second run in the same ranks differs "
+             f"(alignment equal {align_repeat}, BA equal {ba_repeat})")
+    if any(c != levels * (aopts.max_iter + 1) for c in align_fe) or \
+            min(align_gt) <= 0:
+        fail(f"multidevice: fused_evaluate launches per rank {align_fe} "
+             f"(want {levels * (aopts.max_iter + 1)}), gather_tiles "
+             f"{align_gt}")
+    if not seeds_equal or seed_gap > MD_SEED_RTOL or \
+            int(single_seeds.n_updated) == 0:
+        fail(f"multidevice: seed update ftype/counts equal {seeds_equal}, "
+             f"state gap {seed_gap}, {int(single_seeds.n_updated)} updated")
+    if ba_dropped or ba_gap > MD_BA_TOL or ba_chi2_rel > MD_BA_CHI2 or \
+            any(b != vol["bytes_per_solve"] for b in ba_bytes):
+        fail(f"multidevice: BA dropped {ba_dropped}, gap {ba_gap}, chi2 "
+             f"{ba_chi2_rel}, bytes {ba_bytes} vs {vol['bytes_per_solve']}")
+    for name, g in gm.items():
+        if g["pose_gap_m"] > MD_GM_TOL or g["landmark_gap_m"] > MD_GM_TOL \
+                or not g["same_ids"] or g["chi2_rel_gap"] > MD_BA_CHI2 \
+                or g["mean_pos_err_m"] > MD_GM_ACCURACY \
+                or any(g["last_dropped_obs"]):
+            fail(f"multidevice: global map {name}: {g}")
+    if not all(np.isfinite(float(d[k])) for d in dry
+               for k in ("chi2_align", "chi2_ba", "chi2_ba_2d")):
+        fail(f"multidevice: dry run {dry[0]}")
+    return launches
+
+
 def only_phases(smi: str, names: list) -> None:
     """``--only``: the named host and entry-point phases on their own
     inputs, for development calls (no kernels line, no result line; the
@@ -2846,6 +3243,8 @@ def only_phases(smi: str, names: list) -> None:
                        poses, HOST_ARRAY_FRAMES)
     if "host_backends" in names:
         host_backends_phase(smi)
+    if "multidevice" in names:
+        multidevice_phase(smi)
 
 
 def main() -> None:
@@ -2933,7 +3332,7 @@ def main() -> None:
     if not np.isfinite(mats).all() or ate > 0.25 * path:
         fail(f"trajectory off: ATE {ate} m over {path} m")
 
-    emit(profile_frames(frames[:3]) | {"card": smi})
+    emit(profile_frames(frames[:2]) | {"card": smi})
 
     _, cmats, cmeta, cwall, _ = run_slice(frames[:N_CPU_FRAMES], "cpu")
     gap = np.linalg.norm(cmats[:, :3, 3] - mats[:N_CPU_FRAMES, :3, 3],
@@ -2963,6 +3362,7 @@ def main() -> None:
     del slam_input
     rig_counts = stereo_phases(smi)
     host_backends_phase(smi)
+    md_counts = multidevice_phase(smi)
 
     kernels = []
     for k in _cuda.KERNELS:
@@ -2975,14 +3375,16 @@ def main() -> None:
             launches_slam=slam_counts[k.name],
             **{f"launches_{kind}": cnt[k.name]
                for kind, cnt in (rig_counts | host_counts).items()},
+            launches_multidevice=md_counts[k.name],
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"])
         entry |= {key: c[key] for key in ("device_ms", "origins_given_ms",
                                           "copy_route") if key in c}
         if k.name == "fused_evaluate":
-            entry["on_path"] = ("held in the kernels phase; on the path its "
-                                "per-feature evaluate runs inside align_level")
+            entry["on_path"] = ("the multidevice path: once per camera per "
+                                "evaluate on every rank; on one device its "
+                                "evaluate runs inside align_level")
         kernels.append(entry)
     print(smi, flush=True)
     emit({"kernels": kernels})

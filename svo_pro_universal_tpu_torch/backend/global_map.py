@@ -20,13 +20,24 @@ the sliding window's Schur machinery (backend.window_ba):
   its current estimate (``_evict_program``);
 - an optional IMU factor links consecutive states.
 
-The window lives on the card unless ``device`` says otherwise. The
-map-block-partitioned multi-device solve (JAX ``mesh`` / ``mesh_axes``) is
-not ported: giving a mesh raises.
+The window lives on the card unless ``device`` says otherwise.
+
+With ``mesh`` / ``mesh_axes`` (``parallel.mesh``) every solve is
+map-block-partitioned (JAX global_map.py:78-115): it runs on a partitioned
+copy (``sharded_ba.partition_observations``, then ``distributed_optimize``)
+and copies the states and landmarks back, so the stored observation rows
+keep their insertion order; dropped rows are counted in
+``last_dropped_obs`` and warned about. Every rank makes the same calls
+(SPMD). The JAX package hands out landmark slots in cursor order, so the
+first L/n landmarks all fall in shard 0 and its slice overflows as soon as
+they are seen more than No/n times; here the cursor is dealt round-robin
+over the shards (slot = (c mod n)·L/n + c div n), which leaves a one-shard
+map as it was and spreads a partitioned one evenly.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -35,6 +46,8 @@ import torch
 from svo_pro_universal_tpu_torch.backend import window_ba as wba
 from svo_pro_universal_tpu_torch.backend.interface import put_rows
 from svo_pro_universal_tpu_torch.frontend.frame_handler import resolve_device
+from svo_pro_universal_tpu_torch.parallel import sharded_ba as sba
+from svo_pro_universal_tpu_torch.parallel.mesh import FEATURE_AXIS
 from svo_pro_universal_tpu_torch.utils.transform import SE3
 
 
@@ -68,12 +81,20 @@ class GlobalMap:
     def __init__(self, cam_focal, T_cam_body: SE3,
                  opts: GlobalMapOptions = GlobalMapOptions(),
                  mesh=None, mesh_axes: tuple | None = None, device=None):
-        if mesh is not None or mesh_axes is not None:
-            raise NotImplementedError(
-                "GlobalMap(mesh=...): the map-block-partitioned multi-device "
-                "solve is not ported yet (ROADMAP Queue 1, multi-device); "
-                "the port solves on one device")
-        self.device = resolve_device(device)
+        if mesh is None and mesh_axes is not None:
+            raise ValueError("GlobalMap: mesh_axes without a mesh")
+        self.mesh = mesh
+        self.mesh_axes = (tuple(mesh_axes or (FEATURE_AXIS,))
+                          if mesh is not None else None)
+        self._n_shards = 1 if mesh is None else mesh.size(self.mesh_axes)
+        if opts.max_landmarks % self._n_shards or \
+                opts.max_obs % self._n_shards:
+            raise ValueError(f"max_landmarks {opts.max_landmarks} and "
+                             f"max_obs {opts.max_obs} must split over "
+                             f"{self._n_shards} shards")
+        self.last_dropped_obs = 0
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
         self.opts = opts
         self.T_cam_body = SE3(T_cam_body.q.to(self.device),
                               T_cam_body.t.to(self.device))
@@ -95,9 +116,22 @@ class GlobalMap:
         self.ba_opts = wba.BAOptions(max_iter=opts.ba_iters)
 
     def _optimize(self, w: wba.Window) -> tuple[wba.Window, torch.Tensor]:
-        w, chi2, _ = wba.optimize(w, self.T_cam_body, self.focal,
-                                  self.ba_opts)
-        return w, chi2
+        if self.mesh is None:
+            w, chi2, _ = wba.optimize(w, self.T_cam_body, self.focal,
+                                      self.ba_opts)
+            return w, chi2
+        part, n_dropped = sba.partition_observations(w, self._n_shards)
+        self.last_dropped_obs = n_dropped
+        if n_dropped:
+            warnings.warn(
+                f"global-map distributed solve dropped {n_dropped} "
+                f"observation rows (a shard's slice overflowed); increase "
+                f"max_obs or the shard count")
+        wp, chi2, _ = sba.distributed_optimize(
+            part, self.T_cam_body, self.focal, self.mesh, self.ba_opts,
+            self.mesh_axes)
+        return w._replace(q=wp.q, p=wp.p, v=wp.v, bg=wp.bg, ba=wp.ba,
+                          lm_pos=wp.lm_pos, lm_valid=wp.lm_valid), chi2
 
     def _evict_program(self, w: wba.Window) -> wba.Window:
         """Slide the ring: drop state 0, shift everything down one slot,
@@ -140,7 +174,9 @@ class GlobalMap:
     def _lm_slot(self, lid: int) -> int:
         if lid in self.lid2slot:
             return self.lid2slot[lid]
-        slot = self._lm_cursor % self.opts.max_landmarks
+        c = self._lm_cursor % self.opts.max_landmarks
+        n = self._n_shards
+        slot = (c % n) * (self.opts.max_landmarks // n) + c // n
         self._lm_cursor += 1
         old = self.slot2lid.pop(slot, None)
         if old is not None:

@@ -20,9 +20,15 @@ S = Hpp − U·Hll⁻¹·Uᵀ → dense [S·15] solve → landmark back-substitu
 solve in float64 (the float32 system is assembled as in JAX). Inverses and
 solves use the ``_ex`` forms, which do not read LAPACK/cuSOLVER's info back
 to the host; ``eigh`` of the marginal has no such form and synchronizes
-once per marginalization. The mesh-sharded
-variants of the JAX package (``axis_name``, ``lm_offset``) belong to the
-multi-device slice and are not here.
+once per marginalization.
+
+With a mesh (``parallel.mesh.Mesh``) and ``lm_offset`` the solve is
+landmark-sharded, as the JAX package's ``axis_name`` / ``lm_offset``: this
+rank holds the landmark slots ``[lm_offset, lm_offset + L)`` and their
+observation rows (observations of other shards drop out), the state-block
+system and the reduced camera-camera Schur system are all-reduced over the
+mesh's ``axes``, and the dense state solve runs the same on every rank.
+Marginalization stays single-device.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from svo_pro_universal_tpu_torch.backend import imu_factor as imu_mod
+from svo_pro_universal_tpu_torch.parallel.mesh import FEATURE_AXIS
 from svo_pro_universal_tpu_torch.utils.indexing import segment_sum, set_drop
 from svo_pro_universal_tpu_torch.utils.transform import (
     SE3, quat_conjugate, quat_multiply, quat_normalize, quat_to_matrix, skew,
@@ -189,12 +196,16 @@ def local_coords(w: Window) -> torch.Tensor:
 # system assembly
 # ---------------------------------------------------------------------------
 
-def _reproj_terms(w: Window, T_cam_body: SE3, focal, opts: BAOptions):
+def _reproj_terms(w: Window, T_cam_body: SE3, focal, opts: BAOptions,
+                  lm_offset: int = 0):
     """Batched unit-plane reprojection residuals + Jacobians:
-    (e [No,2], J_s [No,2,15], J_l [No,2,3], wgt [No], valid [No])."""
+    (e [No,2], J_s [No,2,15], J_l [No,2,3], wgt [No], valid [No]).
+    ``lm_offset`` maps global landmark ids to this shard's slots;
+    observations of other shards drop out (JAX window_ba.py:175-185)."""
     s = torch.clamp(w.obs_state, 0, w.S - 1)
-    l = torch.clamp(w.obs_lm, 0, w.L - 1)
-    own = (w.obs_lm >= 0) & (w.obs_lm < w.L)
+    l_local = w.obs_lm - lm_offset
+    l = torch.clamp(l_local, 0, w.L - 1)
+    own = (l_local >= 0) & (l_local < w.L)
     q_s, p_s, X = w.q[s], w.p[s], w.lm_pos[l]
     R_bw = quat_to_matrix(quat_conjugate(q_s))            # [No,3,3]
     p_b = torch.einsum("nij,nj->ni", R_bw, X - p_s)
@@ -280,13 +291,15 @@ def _imu_terms(w: Window, opts: BAOptions):
     return r, J_i, J_j
 
 
-def _assemble_reproj(w: Window, T_cam_body: SE3, focal, opts: BAOptions):
+def _assemble_reproj(w: Window, T_cam_body: SE3, focal, opts: BAOptions,
+                     lm_offset: int = 0):
     """Reprojection-factor normal system: (Hpp, bp, U, Hll, bl, chi2)."""
     S, L = w.S, w.L
     D = S * DOF
-    e, J_s, J_l, wgt, rvalid = _reproj_terms(w, T_cam_body, focal, opts)
+    e, J_s, J_l, wgt, rvalid = _reproj_terms(w, T_cam_body, focal, opts,
+                                             lm_offset)
     s_idx = torch.clamp(w.obs_state, 0, S - 1)
-    l_idx = torch.clamp(w.obs_lm, 0, L - 1)
+    l_idx = torch.clamp(w.obs_lm - lm_offset, 0, L - 1)
     s_seg = torch.where(rvalid, s_idx, S)
     l_seg = torch.where(rvalid, l_idx, L)
 
@@ -346,10 +359,21 @@ def _priors(w: Window, opts: BAOptions):
     return H, b, chi2
 
 
-def build_system(w: Window, T_cam_body: SE3, focal, opts: BAOptions):
-    """(Hpp [D,D], bp [D], U [L,D,3], Hll [L,3,3], bl [L,3], chi2)."""
+def build_system(w: Window, T_cam_body: SE3, focal, opts: BAOptions,
+                 mesh=None, axes=(FEATURE_AXIS,), lm_offset: int = 0):
+    """(Hpp [D,D], bp [D], U [L,D,3], Hll [L,3,3], bl [L,3], chi2).
+
+    With ``mesh`` the reprojection part of Hpp, bp and chi2 is all-reduced
+    over ``axes`` (one float32 collective); the landmark blocks U, Hll, bl
+    stay on their shard."""
     S, L = w.S, w.L
-    Hpp, bp, U, Hll, bl, chi2 = _assemble_reproj(w, T_cam_body, focal, opts)
+    D = S * DOF
+    Hpp, bp, U, Hll, bl, chi2 = _assemble_reproj(w, T_cam_body, focal, opts,
+                                                 lm_offset)
+    if mesh is not None:
+        red = mesh.all_reduce(torch.cat([Hpp.reshape(-1), bp,
+                                         chi2.reshape(1)]), axes)
+        Hpp, bp, chi2 = red[:D * D].view(D, D), red[D * D:-1], red[-1]
 
     # ---- IMU factors ---------------------------------------------------
     r_imu, J_i, J_j = _imu_terms(w, opts)
@@ -383,13 +407,16 @@ def build_system(w: Window, T_cam_body: SE3, focal, opts: BAOptions):
     return Hpp, bp, U, Hll, bl, chi2
 
 
-def system_chi2(w: Window, T_cam_body: SE3, focal, opts: BAOptions
+def system_chi2(w: Window, T_cam_body: SE3, focal, opts: BAOptions,
+                mesh=None, axes=(FEATURE_AXIS,), lm_offset: int = 0
                 ) -> torch.Tensor:
     """The chi2 of :func:`build_system` without building the system (the
     JAX package lets XLA drop the unused Jacobians; eagerly they are not
-    computed)."""
-    e, _, _, wgt, _ = _reproj_terms(w, T_cam_body, focal, opts)
+    computed). With ``mesh`` the reprojection chi2 is all-reduced."""
+    e, _, _, wgt, _ = _reproj_terms(w, T_cam_body, focal, opts, lm_offset)
     chi2 = torch.sum(torch.sum(e * e, -1) * wgt)
+    if mesh is not None:
+        chi2 = mesh.all_reduce(chi2.reshape(1), axes)[0]
     r_imu = _imu_residuals(w, opts)
     ivalid = w.imu_valid & w.state_valid[:-1] & w.state_valid[1:]
     info = w.imu_info * ivalid[:, None, None]
@@ -398,15 +425,17 @@ def system_chi2(w: Window, T_cam_body: SE3, focal, opts: BAOptions
 
 
 def single_view_landmarks(w: Window, T_cam_body: SE3, focal,
-                          opts: BAOptions) -> torch.Tensor:
+                          opts: BAOptions, lm_offset: int = 0
+                          ) -> torch.Tensor:
     """[L] valid landmarks with fewer than two valid window views."""
-    valid = _reproj_terms(w, T_cam_body, focal, opts)[4]
-    lm = torch.clamp(w.obs_lm, 0, w.L - 1)
+    valid = _reproj_terms(w, T_cam_body, focal, opts, lm_offset)[4]
+    lm = torch.clamp(w.obs_lm - lm_offset, 0, w.L - 1)
     views = segment_sum(valid.long(), torch.where(valid, lm, w.L), w.L)
     return w.lm_valid & (views < 2)
 
 
-def solve_schur(Hpp, bp, U, Hll, bl, mu, lm_valid, single_view=None):
+def solve_schur(Hpp, bp, U, Hll, bl, mu, lm_valid, single_view=None,
+                mesh=None, axes=(FEATURE_AXIS,)):
     """Schur complement over the landmark blocks + dense state solve, in
     float64 from the float32 system; returns float32 (dx_p, dl).
 
@@ -420,7 +449,13 @@ def solve_schur(Hpp, bp, U, Hll, bl, mu, lm_valid, single_view=None):
     is set the whole state step is voided and those landmarks take no
     update; the others still take theirs. Returns (dx_p, dl, voided): the
     last is True when the state step was voided or had a non-finite
-    entry zeroed."""
+    entry zeroed.
+
+    With ``mesh`` each rank reduces its own landmark blocks and one
+    all-reduce over ``axes`` sums S_red, b_red and the count of single-view
+    landmarks, so every rank voids the same step. The port's reduction is
+    float64, so that collective is float64 where JAX's psum
+    (window_ba.py:409-411) is float32."""
     f64 = torch.float64
     Hpp, bp, U, Hll, bl = (x.to(f64) for x in (Hpp, bp, U, Hll, bl))
     mu = torch.as_tensor(mu, dtype=f64, device=Hll.device)
@@ -430,9 +465,18 @@ def solve_schur(Hpp, bp, U, Hll, bl, mu, lm_valid, single_view=None):
     void = torch.zeros((), dtype=torch.bool, device=Hll.device)
     if single_view is not None:
         Hll_inv = torch.where(single_view[:, None, None], 0.0, Hll_inv)
-        void = torch.any(single_view)
     S_red = torch.einsum("lia,lab,ljb->ij", U, Hll_inv, U)
     b_red = torch.einsum("lia,lab,lb->i", U, Hll_inv, bl)
+    n_single = (torch.sum(single_view.to(f64)).reshape(1)
+                if single_view is not None else S_red.new_zeros((0,)))
+    if mesh is not None:
+        D = S_red.shape[0]
+        red = mesh.all_reduce(torch.cat([S_red.reshape(-1), b_red,
+                                         n_single]), axes)
+        S_red, b_red, n_single = (red[:D * D].view(D, D),
+                                  red[D * D:D * D + D], red[D * D + D:])
+    if single_view is not None:
+        void = n_single[0] > 0
     S_mat = Hpp - S_red
     b_schur = bp - b_red
     S_d = S_mat + mu * torch.diag(torch.clamp(torch.diagonal(S_mat),
@@ -543,28 +587,34 @@ def maybe_vi_align(w: Window, opts: BAOptions) -> Window:
 
 
 def optimize(w: Window, T_cam_body: SE3, focal,
-             opts: BAOptions = BAOptions()
+             opts: BAOptions = BAOptions(), mesh=None,
+             axes=(FEATURE_AXIS,), lm_offset: int = 0
              ) -> tuple[Window, torch.Tensor, torch.Tensor]:
     """LM iterations with keep-best (reference: 3 iterations a frame,
     ceres_backend_interface.hpp:29). Every accept/reject and damping
     update is selected on the device. Returns (window, cost, the number of
     iterations whose state step :func:`solve_schur` voided or zeroed in
-    part)."""
+    part). With ``mesh`` this rank holds landmark slots from ``lm_offset``
+    on (``parallel.sharded_ba.distributed_optimize``); the states, cost and
+    voided count come out the same on every rank."""
+    shard = dict(mesh=mesh, axes=axes, lm_offset=lm_offset)
     if opts.vi_alignment:
         w = maybe_vi_align(w, opts)
     mu = torch.full((), opts.mu_init, dtype=w.q.dtype, device=w.q.device)
-    best = system_chi2(w, T_cam_body, focal, opts)
+    best = system_chi2(w, T_cam_body, focal, opts, **shard)
     n_void = torch.zeros((), dtype=torch.long, device=w.q.device)
     for _ in range(opts.max_iter):
-        Hpp, bp, U, Hll, bl, _ = build_system(w, T_cam_body, focal, opts)
-        single = (single_view_landmarks(w, T_cam_body, focal, opts)
+        Hpp, bp, U, Hll, bl, _ = build_system(w, T_cam_body, focal, opts,
+                                              **shard)
+        single = (single_view_landmarks(w, T_cam_body, focal, opts,
+                                        lm_offset)
                   if opts.void_on_single_view else None)
         dx_p, dl, void = solve_schur(Hpp, bp, U, Hll, bl, mu, w.lm_valid,
-                                     single)
+                                     single, mesh, axes)
         n_void = n_void + void.long()
         cand = retract_states(w, dx_p)
         cand = cand._replace(lm_pos=w.lm_pos + dl * w.lm_valid[:, None])
-        c2_new = system_chi2(cand, T_cam_body, focal, opts)
+        c2_new = system_chi2(cand, T_cam_body, focal, opts, **shard)
         ok = c2_new < best
         w = tree_where(ok, cand, w)
         best = torch.where(ok, c2_new, best)

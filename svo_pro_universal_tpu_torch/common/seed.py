@@ -23,6 +23,20 @@ def make(depth_mean: torch.Tensor, depth_min: torch.Tensor) -> torch.Tensor:
     return torch.stack([mu, sigma2, 10.0 * ones, 10.0 * ones], dim=-1)
 
 
+def depth(state: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.clamp(state[..., MU], min=1e-12)
+
+
+def inv_depth(state: torch.Tensor) -> torch.Tensor:
+    return state[..., MU]
+
+
+def increase_outlier_probability(state: torch.Tensor) -> torch.Tensor:
+    """One more outlier observation: b += 1."""
+    return state + (torch.arange(state.shape[-1], device=state.device)
+                    == B).to(state.dtype)
+
+
 def inv_min_depth(state: torch.Tensor) -> torch.Tensor:
     return state[..., MU] + torch.sqrt(torch.clamp(state[..., SIGMA2],
                                                    min=0.0))

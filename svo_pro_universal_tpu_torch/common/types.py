@@ -58,6 +58,22 @@ def is_edgelet(t: torch.Tensor) -> torch.Tensor:
             | (t == F.EDGELET_SEED_CONVERGED))
 
 
+def is_corner(t: torch.Tensor) -> torch.Tensor:
+    return ((t == F.CORNER) | (t == F.CORNER_SEED)
+            | (t == F.CORNER_SEED_CONVERGED))
+
+
+def is_map_point(t: torch.Tensor) -> torch.Tensor:
+    return ((t == F.MAP_POINT) | (t == F.MAP_POINT_SEED)
+            | (t == F.MAP_POINT_SEED_CONVERGED))
+
+
+def is_landmark(t: torch.Tensor) -> torch.Tensor:
+    """Feature backed by a triangulated 3D point (not a live seed)."""
+    return ((t == F.EDGELET) | (t == F.CORNER) | (t == F.MAP_POINT)
+            | (t == F.FIXED_LANDMARK))
+
+
 def seed_to_converged(t: torch.Tensor) -> torch.Tensor:
     """Seed type code → its converged variant (identity for non-seeds)."""
     return torch.where(is_unconverged_seed(t), t + 3, t)

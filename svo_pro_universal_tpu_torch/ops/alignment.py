@@ -47,6 +47,17 @@ def patch_with_border_to_inner(border_patch: torch.Tensor, patch_size: int
     return val.reshape(flat), dx.reshape(flat), dy.reshape(flat)
 
 
+def extract_patch_with_border(img: torch.Tensor, centers: torch.Tensor,
+                              patch_size: int
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[N, (P+2)²] border patches of ``img`` around integer-floored
+    ``centers``, and the in-bounds mask."""
+    offs = patch_offsets(patch_size + 2, centers.dtype, centers.device)
+    uv = torch.floor(centers)[:, None, :] + offs[None]
+    vals, inb = bilinear(img, uv)
+    return vals, torch.all(inb, dim=-1)
+
+
 def extract_patch_with_border_tiles(
     pyr3: torch.Tensor, level: torch.Tensor, centers: torch.Tensor,
     patch_size: int,

@@ -3,7 +3,10 @@ versions.
 
 - ``fused_evaluate`` — one Gauss-Newton evaluate: counterpart of
   ``svo_pro_universal_tpu/ops/pallas_align.py`` (``fused_evaluate``
-  :126-179, kernel :47-123).
+  :126-179, kernel :47-123). The sharded alignment
+  (``align_level_sharded``) launches it once per camera per evaluate, with
+  an all-reduce over the ranks between launches: a kernel cannot wait on a
+  collective halfway through, so ``align_level`` cannot serve there.
 - ``align_level`` — one pyramid level of sparse image alignment, the whole
   LM keep-best loop in one cluster launch: the redesign of the fused
   evaluate for the card, which replaces the JAX ``lax.while_loop`` around
@@ -98,15 +101,18 @@ def fused_evaluate_plain(tiles: torch.Tensor, ty: torch.Tensor,
     return H, g, chi2, torch.sum(weight)
 
 
-def fused_evaluate(tiles: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
-                   weight: torch.Tensor, ref_patch: torch.Tensor,
-                   jac: torch.Tensor, ab: torch.Tensor, patch_size: int = 4):
-    """One evaluate over all features.
+def fused_evaluate_packed(tiles: torch.Tensor, ty: torch.Tensor,
+                          tx: torch.Tensor, weight: torch.Tensor,
+                          ref_patch: torch.Tensor, jac: torch.Tensor,
+                          ab: torch.Tensor, patch_size: int = 4
+                          ) -> torch.Tensor:
+    """One evaluate over all features, packed as one [74] vector
+    (H [8, 8] row-major, g [8], chi2, n_visible): the kernel's own output
+    buffer on the card, the plain version's sums on the CPU.
 
     tiles [N, R, T] f32; ty, tx [N] tile-local coords of patch pixel (0,0);
     weight [N] 0/1; ref_patch [N, P²]; jac [N, P², 8]; ab [2] = (α, β) on
-    the tiles' device. Returns (H [8,8], g [8], chi2, n_visible) tensors.
-    """
+    the tiles' device."""
     n, R, T = tiles.shape
     P = patch_size
     area = P * P
@@ -115,8 +121,8 @@ def fused_evaluate(tiles: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
             or ab.shape != (2,)):
         raise ValueError("fused_evaluate: inconsistent shapes")
     if tiles.device.type == "cpu":
-        return fused_evaluate_plain(tiles, ty, tx, weight, ref_patch, jac,
-                                    ab, P)
+        return pack_sums(*fused_evaluate_plain(tiles, ty, tx, weight,
+                                               ref_patch, jac, ab, P))
     if tiles.device.type != "cuda":
         raise ValueError(f"fused_evaluate: unsupported device {tiles.device}")
     if area > 64:
@@ -131,6 +137,24 @@ def fused_evaluate(tiles: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
     Pt = _cuda.ptr
     FUSED_EVALUATE.launch(*[Pt(a) for a in args], Pt(partials), Pt(out),
                           n, R, T, P)
+    return out
+
+
+def fused_evaluate(tiles: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor,
+                   weight: torch.Tensor, ref_patch: torch.Tensor,
+                   jac: torch.Tensor, ab: torch.Tensor, patch_size: int = 4):
+    """:func:`fused_evaluate_packed` unpacked: (H [8,8], g [8], chi2,
+    n_visible) tensors."""
+    return unpack_sums(fused_evaluate_packed(tiles, ty, tx, weight,
+                                             ref_patch, jac, ab, patch_size))
+
+
+def pack_sums(H, g, chi2, n) -> torch.Tensor:
+    return torch.cat([H.reshape(64), g, chi2.reshape(1),
+                      n.to(H.dtype).reshape(1)])
+
+
+def unpack_sums(out: torch.Tensor):
     return out[:64].view(8, 8), out[64:72], out[72], out[73]
 
 
@@ -192,6 +216,35 @@ def align_level_plain(cams: Sequence[LevelCamera], state: AlignState, opts,
     that freezes the state, so it needs no host read per iteration.
     ``opts`` is a ``SparseImgAlignOptions``. Returns (best state, best chi2,
     n_tracked of the initial evaluate, iterations run)."""
+    def camera_sums(ab, origins):
+        return [pack_sums(*fused_evaluate_plain(
+            lc.tb.tiles, ty, tx, w, lc.ref_patch, lc.jac, ab,
+            opts.patch_size)) for lc, (ty, tx, w) in zip(cams, origins)]
+    return _keep_best_loop(cams, state, opts, level, T_prior, camera_sums)
+
+
+def align_level_sharded(cams: Sequence[LevelCamera], state: AlignState,
+                        opts, level: int, mesh, axes: Sequence[str],
+                        T_prior: SE3 | None = None):
+    """:func:`align_level_plain`'s loop with this rank's features: each
+    evaluate launches :func:`fused_evaluate` once per camera (its kernel on
+    the card), and one all-reduce over ``axes`` of ``mesh`` sums the packed
+    (H, g, chi2, n) after the camera sum and before the fixed-parameter
+    edits, the division by n and the prior, where JAX's psum sits
+    (sparse_img_align.py:309-316). Every rank then solves the same system.
+    One level makes ``max_iter + 1`` evaluates."""
+    def camera_sums(ab, origins):
+        return [fused_evaluate_packed(lc.tb.tiles, ty, tx, w, lc.ref_patch,
+                                      lc.jac, ab, opts.patch_size)
+                for lc, (ty, tx, w) in zip(cams, origins)]
+    return _keep_best_loop(cams, state, opts, level, T_prior, camera_sums,
+                           lambda x: mesh.all_reduce(x, axes))
+
+
+def _keep_best_loop(cams, state: AlignState, opts, level: int,
+                    T_prior: SE3 | None, camera_sums, reduce=None):
+    """The loop of :func:`align_level_plain`; ``camera_sums(ab, origins)``
+    gives each camera's packed sums, ``reduce`` the cross-rank sum."""
     dev = cams[0].xyz_ref.device
     f32 = torch.float32
     P = opts.patch_size
@@ -201,19 +254,16 @@ def align_level_plain(cams: Sequence[LevelCamera], state: AlignState, opts,
     use_prior = _uses_prior(opts, T_prior)
 
     def evaluate(st: AlignState):
-        H = torch.zeros((8, 8), dtype=f32, device=dev)
-        g = torch.zeros((8,), dtype=f32, device=dev)
-        c2 = torch.zeros((), dtype=f32, device=dev)
-        nm = torch.zeros((), dtype=torch.long, device=dev)
         ab = torch.stack([st.alpha, st.beta]).to(f32)
-        for lc in cams:
-            ty, tx, w = patch_origins(lc, st.T_icur_iref, level, P)
-            Hc, gc, c2c, nmc = fused_evaluate_plain(
-                lc.tb.tiles, ty, tx, w, lc.ref_patch, lc.jac, ab, P)
-            H = H + Hc
-            g = g + gc
-            c2 = c2 + c2c
-            nm = nm + nmc.long()
+        origins = [patch_origins(lc, st.T_icur_iref, level, P)
+                   for lc in cams]
+        sums = torch.zeros((_N_OUT,), dtype=f32, device=dev)
+        for s in camera_sums(ab, origins):
+            sums = sums + s
+        if reduce is not None:
+            sums = reduce(sums)
+        H, g, c2, nm = unpack_sums(sums)
+        nm = nm.long()
         # parameters not estimated: H[i, i] = 1 and g[i] = 0
         H = torch.where(torch.diag(fixed), 1.0, H)
         g = torch.where(fixed, 0.0, g)

@@ -78,6 +78,23 @@ def update_vogiatzis(state: torch.Tensor, z: torch.Tensor,
     return new_state, diverged & apply
 
 
+def update_gaussian(state: torch.Tensor, z: torch.Tensor, tau2: torch.Tensor,
+                    apply: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain Gaussian fusion (reference depth_filter.cpp:554-578); rows
+    where ``apply`` is False pass through. Returns (new_state, diverged),
+    the latter all False."""
+    mu, sigma2 = state[:, 0], state[:, 1]
+    denom = torch.clamp(sigma2 + tau2, min=1e-12)
+    mu_new = (sigma2 * z + tau2 * mu) / denom
+    s2_new = sigma2 * tau2 / denom
+    ok = apply & torch.isfinite(mu_new)
+    new_state = torch.stack([
+        torch.where(ok, mu_new, mu), torch.where(ok, s2_new, sigma2),
+        state[:, 2], state[:, 3]], dim=-1)
+    return new_state, torch.zeros_like(apply)
+
+
 class SeedUpdateResult(NamedTuple):
     seed_state: torch.Tensor   # [N, 4] updated
     ftype: torch.Tensor        # [N] updated feature types

@@ -41,6 +41,11 @@ def level_view(pyr3: torch.Tensor, level: int) -> torch.Tensor:
     return pyr3[level, : h >> level, : w >> level]
 
 
+def pyramid_levels(pyr3: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Every level's valid-extent view."""
+    return tuple(level_view(pyr3, lv) for lv in range(pyr3.shape[0]))
+
+
 def image_to_float(img, device=None) -> torch.Tensor:
     """uint8/float image → float32 [0, 255] on ``device``. A numpy uint8
     image is uploaded as uint8 and converted on the device."""

@@ -12,6 +12,8 @@ Each pyramid level runs through ``cuda_align.align_level``: on the card one
 cluster kernel runs the level's whole LM keep-best loop; on the CPU its plain
 version is the JAX ``lax.while_loop`` run for the fixed ``max_iter`` with a
 ``done`` mask that freezes the state. Neither reads the device from the host.
+With a mesh (features sharded over ranks) each level runs that loop through
+the standalone ``fused_evaluate`` kernel with an all-reduce per evaluate.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from svo_pro_universal_tpu_torch.cameras import projections as proj
 from svo_pro_universal_tpu_torch.ops import cuda_align
 from svo_pro_universal_tpu_torch.ops import tiles as tl
 from svo_pro_universal_tpu_torch.ops.cuda_align import AlignState
+from svo_pro_universal_tpu_torch.parallel.mesh import FEATURE_AXIS
 from svo_pro_universal_tpu_torch.utils.transform import (
     SE3, quat_to_matrix, skew)
 
@@ -198,11 +201,18 @@ def level_cameras(inputs: Sequence[CameraInput], pre: list,
 
 def run(inputs: Sequence[CameraInput], state0: AlignState,
         opts: SparseImgAlignOptions, T_prior: SE3 | None = None,
+        mesh=None, axes: Sequence[str] = (FEATURE_AXIS,),
         ) -> tuple[AlignState, AlignStats]:
     """Coarse-to-fine sparse image alignment over all cameras, with the
     optional prior on T_icur_iref weighted by prior_lambda_{rot,trans} × the
     max H diagonal (reference applyPrior :77-110). Each level is one
-    ``cuda_align.align_level`` call: one kernel launch on the card."""
+    ``cuda_align.align_level`` call: one kernel launch on the card.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``) the inputs hold this rank's
+    features, and each level runs ``cuda_align.align_level_sharded``: one
+    ``fused_evaluate`` a camera per evaluate and one all-reduce over
+    ``axes`` (JAX ``axis_name``); the state comes back the same on every
+    rank."""
     dev = inputs[0].px_ref.device
     pre = [precompute_base(inp, opts.use_distortion_jacobian)
            for inp in inputs]
@@ -212,8 +222,12 @@ def run(inputs: Sequence[CameraInput], state0: AlignState,
     n_tracked = torch.zeros((), dtype=torch.long, device=dev)
     for level in range(opts.max_level, opts.min_level - 1, -1):
         cams = level_cameras(inputs, pre, state, opts, level)
-        state, chi2, n_tracked, iters = cuda_align.align_level(
-            cams, state, opts, level, T_prior)
+        if mesh is None:
+            state, chi2, n_tracked, iters = cuda_align.align_level(
+                cams, state, opts, level, T_prior)
+        else:
+            state, chi2, n_tracked, iters = cuda_align.align_level_sharded(
+                cams, state, opts, level, mesh, axes, T_prior)
         total_iters = total_iters + iters
     return state, AlignStats(chi2, n_tracked, total_iters)
 

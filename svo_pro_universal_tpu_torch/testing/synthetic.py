@@ -13,7 +13,9 @@ gathers (origin arithmetic included) to their plain versions; bench.py's
 mono-VIO input (``bench_sequence``: its sphere+plane scene along its
 ``twist`` trajectory, ``degrade_sequence``, the 200 Hz IMU stream); and the
 same scene seen by a camera rig (``rig_sequence``), with the EuRoC stereo
-rig of examples/param/euroc_stereo.yaml (``euroc_stereo_rig``).
+rig of examples/param/euroc_stereo.yaml (``euroc_stereo_rig``); the
+JAX toolkit's ``grid_features`` and ``synthetic_ba_window`` (bench.py's
+backend window).
 """
 
 from __future__ import annotations
@@ -23,13 +25,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from svo_pro_universal_tpu_torch.backend import imu_factor as imf
+from svo_pro_universal_tpu_torch.backend import window_ba as wba
 from svo_pro_universal_tpu_torch.cameras import projections as proj
 from svo_pro_universal_tpu_torch.cameras.rig import load_rig_yaml
+from svo_pro_universal_tpu_torch.frontend.imu_handler import ImuWindow
 from svo_pro_universal_tpu_torch.ops import cuda_tiles
 from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
 from svo_pro_universal_tpu_torch.ops.pyramid import (
     build_pyramid, image_to_float)
-from svo_pro_universal_tpu_torch.utils.transform import SE3, matrix_to_quat
+from svo_pro_universal_tpu_torch.utils.transform import (
+    SE3, matrix_to_quat, quat_conjugate, quat_rotate)
 
 H, W = 120, 160
 INTRINSICS = (150.0, 150.0, W / 2, H / 2)     # fx, fy, cx, cy
@@ -581,3 +587,83 @@ def quat_to_matrix_np(q: np.ndarray) -> np.ndarray:
         [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
         [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+# ---------------------------------------------------------------------------
+# feature grids and the synthetic sliding-window BA problem
+# ---------------------------------------------------------------------------
+
+def grid_features(n_grid: int = 10, border: float = 20,
+                  cam: proj.Camera | None = None, plane_z: float = PLANE_Z
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """An ``n_grid``² feature grid on the reference view of the plane
+    ``z = plane_z`` with exact depths (distance along the ray): (px [N, 2],
+    f [N, 3], depth [N]). ``cam`` defaults to the toolkit's pinhole."""
+    if cam is None:
+        cam = proj.Camera.pinhole(*INTRINSICS, W, H)
+    us = np.linspace(border, cam.width - border, n_grid)
+    vs = np.linspace(border, cam.height - border, n_grid)
+    uu, vv = np.meshgrid(us, vs)
+    px = torch.as_tensor(np.stack([uu.ravel(), vv.ravel()], -1)
+                         .astype(np.float32), device=cam.device)
+    f = proj.backproject(cam, px)
+    return px, f, plane_z / f[:, 2]
+
+
+def synthetic_ba_window(S: int = 8, n_landmarks: int = 200, L: int = 256,
+                        No: int = 1024, obs_per_state: int = 120,
+                        imu_rate: float = 200.0, state_dt: float = 0.2,
+                        seed: int = 0, device=None):
+    """A consistent VI window at the reference's backend shape
+    (ceres_backend_interface.hpp:21-58: 5 keyframes + 3 IMU frames = 8
+    states): forward motion at constant velocity, landmarks in a box ahead,
+    exact unit-plane bearings (state s sees landmarks 7·s ... 7·s +
+    ``obs_per_state`` − 1, wrapped), stationary-consistent IMU factors. The
+    JAX toolkit's ``synthetic_ba_window``, bench.py's ``ba_iters_per_s``
+    input."""
+    rng = np.random.default_rng(seed)
+    f32 = torch.float32
+    vel = torch.tensor([0.5, 0.0, 0.0])
+    ts = torch.arange(S, dtype=f32) * state_dt
+    p = ts[:, None] * vel[None]
+    q = torch.tensor([1.0, 0.0, 0.0, 0.0]).repeat(S, 1)
+    w = wba.make_window(S, L, No)
+    w = w._replace(q=q, p=p, v=vel.repeat(S, 1),
+                   state_valid=torch.ones((S,), dtype=torch.bool))
+
+    lm = torch.as_tensor(rng.uniform([-2.5, -2.0, 2.0], [3.5, 2.0, 8.0],
+                                     (n_landmarks, 3)).astype(np.float32))
+    lm_pos, lm_valid = w.lm_pos.clone(), w.lm_valid.clone()
+    lm_pos[:n_landmarks] = lm
+    lm_valid[:n_landmarks] = True
+
+    per = min(obs_per_state, n_landmarks, No // S)
+    lm_idx = ((torch.arange(S)[:, None] * 7 + torch.arange(per)[None])
+              % n_landmarks)                                   # [S, per]
+    pb = quat_rotate(quat_conjugate(q)[:, None], lm[lm_idx] - p[:, None])
+    f = pb / torch.linalg.norm(pb, dim=-1, keepdim=True)       # [S, per, 3]
+    n_obs = S * per
+    obs_state, obs_lm = w.obs_state.clone(), w.obs_lm.clone()
+    obs_f, obs_valid = w.obs_f.clone(), w.obs_valid.clone()
+    obs_state[:n_obs] = torch.arange(S).repeat_interleave(per)
+    obs_lm[:n_obs] = lm_idx.reshape(-1)
+    obs_f[:n_obs] = f.reshape(-1, 3)
+    obs_valid[:n_obs] = True
+
+    # IMU factors: constant-velocity segments (zero rotation, gravity-only
+    # specific force), consistent with the states
+    n_samp = int(imu_rate * state_dt) + 1
+    t_seg = torch.linspace(0.0, state_dt, n_samp)
+    win = ImuWindow(t_seg, torch.zeros((n_samp, 3)),
+                    torch.tensor([0.0, 0.0, 9.81]).repeat(n_samp, 1),
+                    torch.ones((n_samp,), dtype=torch.bool))
+    factor = imf.preintegrate_with_cov(win, torch.zeros(3), torch.zeros(3),
+                                       1e-3, 1e-2, range(n_samp - 1))
+    info = imf.imu_information(factor, 1e-4, 1e-3)
+    stacked = wba.tree_map(
+        lambda x: x[None].repeat((S - 1,) + (1,) * x.ndim), factor)
+    w = w._replace(lm_pos=lm_pos, lm_valid=lm_valid, obs_state=obs_state,
+                   obs_lm=obs_lm, obs_f=obs_f, obs_valid=obs_valid,
+                   imu=stacked, imu_info=info[None].repeat(S - 1, 1, 1),
+                   imu_valid=torch.ones((S - 1,), dtype=torch.bool))
+    return wba.tree_map(lambda x: x.to(device), w) if device else w

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 TUKEY_B = 4.6851
+HUBER_K = 1.345
 
 
 def tukey_weight(x_norm: torch.Tensor, b: float = TUKEY_B) -> torch.Tensor:
@@ -24,6 +25,11 @@ def tukey_rho(x_norm: torch.Tensor, b: float = TUKEY_B) -> torch.Tensor:
     r2 = torch.square(x_norm / b)
     inner = 1.0 - torch.pow(1.0 - r2, 3)
     return (b * b / 6.0) * torch.where(r2 < 1.0, inner, 1.0)
+
+
+def huber_weight(x_norm: torch.Tensor, k: float = HUBER_K) -> torch.Tensor:
+    ax = torch.abs(x_norm)
+    return torch.where(ax <= k, 1.0, k / torch.clamp(ax, min=1e-12))
 
 
 def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -41,3 +47,8 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def mad_scale(errors: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Median absolute deviation scale estimate: 1.48 * median(|e|)."""
     return 1.48 * masked_median(torch.abs(errors), mask)
+
+
+def unit_scale(errors: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The identity scale estimator: 1."""
+    return torch.ones((), dtype=errors.dtype, device=errors.device)

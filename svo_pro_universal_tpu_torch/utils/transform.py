@@ -195,6 +195,13 @@ class SE3(NamedTuple):
         t = torch.zeros(tuple(batch_shape) + (3,), dtype=dtype, device=device)
         return SE3(q.clone(), t)
 
+    @staticmethod
+    def from_matrix(m: torch.Tensor) -> "SE3":
+        return SE3(matrix_to_quat(m[..., :3, :3]), m[..., :3, 3])
+
+    def rotation_matrix(self) -> torch.Tensor:
+        return quat_to_matrix(self.q)
+
     def as_matrix(self) -> torch.Tensor:
         r = quat_to_matrix(self.q)
         top = torch.cat([r, self.t[..., :, None]], dim=-1)
@@ -256,3 +263,21 @@ def se3_log(T: SE3) -> torch.Tensor:
     Vinv = _eye_like(W) - 0.5 * W + cot_term * W2
     v = torch.einsum("...ij,...j->...i", Vinv, T.t)
     return torch.cat([v, w], dim=-1)
+
+
+def se3_boxplus(T: SE3, twist: torch.Tensor) -> SE3:
+    """Left-multiplicative update: exp(twist) ∘ T (the GN solvers' rule)."""
+    return se3_exp(twist).compose(T)
+
+
+def se3_distance(a: SE3, b: SE3) -> tuple[torch.Tensor, torch.Tensor]:
+    """(translation distance, rotation angle in radians) between poses."""
+    dt = torch.linalg.norm(a.t - b.t, dim=-1)
+    ang = torch.linalg.norm(so3_log(quat_multiply(quat_conjugate(a.q), b.q)),
+                            dim=-1)
+    return dt, ang
+
+
+def se3_interpolate(a: SE3, b: SE3, alpha) -> SE3:
+    """Geodesic interpolation a ∘ exp(alpha · log(a⁻¹ b))."""
+    return a.compose(se3_exp(alpha * se3_log(a.inverse().compose(b))))

@@ -7,7 +7,8 @@ tests/test_torch_kernels.py; the align level (each of levels 4..2 from the
 same inputs) rotation ≤ 1e-4 rad, translation ≤ 1e-4·depth, n_tracked
 equal. The gathers are held on both copy routes of csrc/tiles.cu (TMA at
 752 wide, plain loads at 754 and for 10×10 tiles) and in both modes (centres, origins
-given), non-finite centres included."""
+given), non-finite centres included. Two ranks sharing the card align as
+one rank does (pose 1e-5)."""
 
 import numpy as np
 import pytest
@@ -244,3 +245,33 @@ def test_host_handler_runs_on_the_card():
         assert g.is_keyframe == c.is_keyframe
         assert np.linalg.norm(g.T_world_cam[:3, 3]
                               - c.T_world_cam[:3, 3]) <= 5e-3
+
+
+@pytest.mark.gpu
+def test_two_rank_alignment_on_the_card():
+    """``distributed_align`` on 2 ranks sharing the card (gloo) against one
+    rank's ``sia.run`` (the ``align_level`` kernel): pose within 1e-5; each
+    rank launches ``fused_evaluate`` ``levels × (max_iter + 1)`` times and
+    the gathers at least once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run on the card with `python -m "
+                    "pytest --noconftest tests/test_torch_gpu.py -m gpu`")
+    from svo_pro_universal_tpu_torch.parallel import dryrun
+    from svo_pro_universal_tpu_torch.parallel.mesh import launch
+    from svo_pro_universal_tpu_torch.testing.parallel_cases import run_steps
+    inp, _ = dryrun.synthetic_inputs(h=48, w=64, n_feat=32, device="cpu")
+    opts = sia.SparseImgAlignOptions(max_level=1, min_level=0, max_iter=5)
+    one, _ = sia.run([dryrun.synthetic_inputs(h=48, w=64, n_feat=32,
+                                              device="cuda")[0]],
+                     sia.make_state(device="cuda"), opts)
+    ranks = launch(2, run_steps, None, [("align", dict(
+        shape=(2,), inp=inp, state0=sia.make_state(), opts=opts))])
+    for r in ranks:
+        a = r["align"][0]
+        np.testing.assert_allclose(a["t"].numpy(),
+                                   one.T_icur_iref.t.cpu().numpy(), atol=1e-5)
+        np.testing.assert_allclose(a["q"].numpy(),
+                                   one.T_icur_iref.q.cpu().numpy(), atol=1e-5)
+        assert a["launches"]["fused_evaluate"] == 2 * (opts.max_iter + 1)
+        assert a["launches"]["align_level"] == 0
+        assert a["launches"]["gather_tiles"] > 0

@@ -30,7 +30,9 @@ onto their bearings, so there the port's cost is held at or below JAX's.
 - IMU factors between global states: a blind state pulled back by the IMU
   chain (the JAX test's gate) and the optimized positions within 1e-3 of
   JAX's.
-- A mesh raises; the default device is the card.
+- Mesh axes without a mesh, or a mesh the capacities do not split over,
+  raise (``tests/test_torch_global_map_mesh.py`` runs a mesh); the default
+  device is the card.
 """
 
 import jax.numpy as jnp
@@ -332,8 +334,16 @@ def test_global_map_imu_factors_like_jax():
 
 def test_backends_default_to_the_card_and_refuse_a_mesh(monkeypatch):
     T = tse3(JSE3.identity())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        GlobalMap(300.0, T, mesh=object(), device="cpu")
+
+    class ThreeShards:                 # a mesh 1024 slots do not split over
+        device = torch.device("cpu")
+
+        def size(self, axes):
+            return 3
+    with pytest.raises(ValueError, match="mesh"):
+        GlobalMap(300.0, T, mesh_axes=("h",), device="cpu")
+    with pytest.raises(ValueError, match="split over 3 shards"):
+        GlobalMap(300.0, T, mesh=ThreeShards(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: GlobalMap(300.0, T),
                  lambda: BackendInterface(300.0, T)):

@@ -44,7 +44,10 @@ def test_port_imports_no_jax():
                  "utils.stage_profile", "utils.solver", "common.occupancy",
                  "ops.edge_depth", "runners.run_euroc_vio",
                  "runners.run_euroc_mono", "runners.run_euroc_stereo",
-                 "runners.run_image_dir", "runners.run_video"):
+                 "runners.run_image_dir", "runners.run_video",
+                 "parallel.mesh", "parallel.sharded_ops",
+                 "parallel.sharded_ba", "parallel.dryrun",
+                 "testing.parallel_cases"):
         assert f"svo_pro_universal_tpu_torch.{name}" in out["modules"]
 
 
