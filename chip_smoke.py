@@ -207,15 +207,29 @@ line each:
             perturbed
             (p, q within 2e-4, chi2 2%, no row dropped, the counted bytes
             equal to ``comms_volume_per_solve``; bench.py's ba_solve_ms and
-            ba_iters_per_s of one rank); ``GlobalMap(mesh=...)`` at the
-            default capacities fed 40 keyframes on (2, 2) over (h, f) and
-            (4, 1) over (h,) (poses, landmarks 1e-3 of one rank, chi2 2%,
-            no row dropped, mean position error < 0.03 m; one rank's run on
-            the CPU printed beside it); the dry run;
+            ba_iters_per_s of one rank); ``GlobalMap(mesh=...,
+            spread_slots=True)`` at the default capacities fed 40 keyframes
+            on (2, 2) over (h, f) and (4, 1) over (h,) (poses, landmarks
+            1e-3 of one rank, chi2 2%, no row dropped, mean position error
+            < 0.03 m; one rank's run on the CPU printed beside it; the
+            option deals the slots over the shards: in the JAX package's
+            cursor order, the default, the partition drops rows, counted as
+            ``contiguous_layout_dropped``); the dry run;
             the alignment and BA again in the same ranks (equal to the bit,
             gated; the seed state's bit-equality with one rank recorded).
             Four ranks on one card measure correctness and bytes, not
             scale-out.
+12. bench   the port's benchmark, ``svo_pro_universal_tpu_torch.bench``'s
+            ``main`` in this process (``DevicePipelineVIO`` in the vio
+            phase's configuration fed as bench.py feeds it: batches of 8
+            through ``add_images_batched``, ``block()`` after the warm-up
+            and after each of three chunks; then the SLAM section, the stage
+            profile and the BA window), reduced to 32 VIO frames (20
+            warm-up) and 28 SLAM frames (16 warm-up), 2 calls a stage and a
+            BA solve (``BENCH_REDUCED``): its one JSON line parses and
+            carries bench.py's keys, names this card, TRACKING on ≥ 90% of
+            the timed frames of both runs, the gathers and align_level
+            launched in both.
 
 The ``kernels`` line's ``launches`` are the vio run's, counted from 0 just
 before it (``launches_mono_slice``: the slice run's; ``launches_slam``,
@@ -225,15 +239,16 @@ before it (``launches_mono_slice``: the slice run's; ``launches_slam``,
 ``launches_euroc``, ``launches_euroc_device``, ``launches_euroc_mono``,
 ``launches_euroc_stereo``, ``launches_detectors``,
 ``launches_edge_depth``: those runs'; ``launches_multidevice``: the
-multidevice steps', summed over the ranks).
+multidevice steps', summed over the ranks; ``launches_bench_vio``,
+``launches_bench_slam``: the bench phase's VIO and SLAM runs').
 ``python3 chip_smoke.py --only host_vio,euroc,detectors,...`` runs just the
 named host and entry-point phases (host_mono, checkpoint, host_vio,
 host_vio_epoch, host_slam, host_stereo, host_array, host_backends, euroc,
-euroc_mono, euroc_stereo, detectors, edge_depth, multidevice) after the
-build (a
-development call: no kernels or result line; ``host_vio_epoch``, host_vio
-at EuRoC-epoch stamps, and ``epoch_effect``, its gap to host_vio a frame,
-run only there).
+euroc_mono, euroc_stereo, detectors, edge_depth, multidevice, bench)
+after the build (a development call: no kernels or result line;
+``host_vio_epoch``, host_vio at EuRoC-epoch stamps, and ``epoch_effect``,
+its gap to host_vio a frame, run only there; ``bench`` at bench.py's sizes:
+140 VIO frames, 160 SLAM frames, 32 calls a stage, 24 BA solves).
 The line before the last is the ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Needs one CUDA card; imports nothing of JAX.
@@ -241,6 +256,8 @@ Needs one CUDA card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -251,6 +268,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from svo_pro_universal_tpu_torch import bench as port_bench
 from svo_pro_universal_tpu_torch import io as sio
 from svo_pro_universal_tpu_torch import native_loader
 from svo_pro_universal_tpu_torch.backend import loop_closing as lc_mod
@@ -260,6 +278,7 @@ from svo_pro_universal_tpu_torch.backend.global_map import (
 from svo_pro_universal_tpu_torch.backend.interface import BackendInterface
 from svo_pro_universal_tpu_torch.backend import window_ba as wba
 from svo_pro_universal_tpu_torch.backend.window_ba import BAOptions
+from svo_pro_universal_tpu_torch.bench import VioRun, slam_options, vio_config
 from svo_pro_universal_tpu_torch.cameras.projections import (
     Camera, DistortionModel, ProjectionModel)
 from svo_pro_universal_tpu_torch.cameras import projections as proj
@@ -276,14 +295,10 @@ from svo_pro_universal_tpu_torch.frontend.imu_handler import ImuHandler
 from svo_pro_universal_tpu_torch.frontend.pipeline import DevicePipelineMono
 from svo_pro_universal_tpu_torch.frontend.pipeline_array import (
     DevicePipelineArray)
-from svo_pro_universal_tpu_torch.frontend.pipeline_slam import (
-    DevicePipelineSLAM, SlamOptions)
 from svo_pro_universal_tpu_torch.frontend.pipeline_stereo import (
     DevicePipelineStereo)
 from svo_pro_universal_tpu_torch.frontend.pipeline_stereo_vio import (
     DevicePipelineStereoVIO)
-from svo_pro_universal_tpu_torch.frontend.pipeline_vio import (
-    DevicePipelineVIO)
 from svo_pro_universal_tpu_torch.frontend.slam import FrameHandlerSLAM
 from svo_pro_universal_tpu_torch.ops import _cuda, cuda_align, cuda_tiles
 from svo_pro_universal_tpu_torch.ops import depth_filter as df_mod
@@ -828,74 +843,6 @@ JAX_REFERENCE = {"ate_m": 0.009, "ate_se3_m": 0.0481, "scale_error": 0.1152,
                  "n_tracking": "120/120"}
 
 
-def vio_config(cell_size: int = 30) -> Config:
-    """bench.py:159-184, the mono_vio_degraded_imagery configuration
-    (FivePoint initialization, the Config default), with the backend's
-    ``zupt_require_rest`` on."""
-    cfg = Config()
-    cfg.capacity.max_fts = 360
-    cfg.capacity.max_kfs = 8
-    cfg.capacity.max_points = 4096
-    cfg.n_pyr_levels = 4
-    cfg.detector.cell_size = cell_size
-    cfg.detector.threshold_primary = 8.0
-    cfg.init.init_min_disparity = 20.0
-    cfg.init.reproj_error_thresh = 1.0
-    cfg.init.expected_avg_depth = 3.4
-    cfg.init.init_min_features = 60
-    cfg.init.init_min_tracked = 40
-    cfg.init.init_min_inliers = 30
-    cfg.depth_filter.seed_convergence_sigma2_thresh = 60.0
-    cfg.base.quality_min_fts = 20
-    cfg.base.kfselect_numkfs_lower_thresh = 60
-    cfg.base.kfselect_min_disparity = 30.0
-    cfg.base.kfselect_min_dist_metric = 0.1
-    cfg.reprojector.max_n_features_per_frame = 200
-    cfg.backend.num_keyframes = 5
-    cfg.backend.max_iterations = 3
-    # the port's opt-in fix of the reference's zero-velocity prior: with
-    # the window solve stepping its states, bench.py's noise-free IMU reads
-    # as stationary and the prior drags the moving window (the JAX package
-    # with the same float64 solve: Sim3 ATE 0.4475 m on this scene,
-    # reference_cpu.py)
-    cfg.backend.zupt_require_rest = True
-    return cfg
-
-
-class VioRun:
-    """DevicePipelineVIO (DevicePipelineSLAM given ``slam_opts``) on one
-    device, fed like bench.py's Feeder (bench.py:139-148): the IMU up to
-    each frame's time, then the frame."""
-
-    def __init__(self, cam: Camera, cfg: Config, imu_meas: list, device,
-                 n_frames: int, slam_opts: SlamOptions | None = None):
-        self.imu = ImuHandler(ImuParams())
-        kw = dict(imu_handler=self.imu, imu_params=ImuParams(),
-                  trace_capacity=n_frames + 1, device=device)
-        if slam_opts is None:
-            self.pipe = DevicePipelineVIO(cfg, cam, **kw)
-        else:
-            self.pipe = DevicePipelineSLAM(cfg, cam, slam_opts=slam_opts,
-                                           **kw)
-        self.imu_meas = imu_meas
-        self.i_imu = 0
-        self.device = torch.device(device)
-
-    def feed(self, frames: list, t0: int, t1: int, wall=None) -> None:
-        for t in range(t0, t1):
-            ts = t * syn.CAM_DT
-            while (self.i_imu < len(self.imu_meas)
-                   and self.imu_meas[self.i_imu][0] <= ts):
-                self.imu.add_measurement(*self.imu_meas[self.i_imu])
-                self.i_imu += 1
-            c0 = time.perf_counter()
-            self.pipe.add_image(frames[t], ts)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize()
-            if wall is not None:
-                wall.append(time.perf_counter() - c0)
-
-
 def count_launches_in(obj, name: str, kernel: _cuda.Kernel,
                       log: list) -> None:
     """Record the launches of ``kernel`` made inside each call of
@@ -1101,12 +1048,6 @@ JAX_SLAM_REFERENCE = {"n_tracking": "144/144", "n_keyframes": 25,
                       "n_loops_closed": 2, "last_loop_to": 16,
                       "gm_landmarks": 384, "lc_best_sim": 0.991,
                       "ate_m": 0.0745, "traj_len_m": 4.22}
-
-
-def slam_options() -> SlamOptions:
-    """bench.py:314-316."""
-    return SlamOptions(max_db_keyframes=128, max_nodes=128, gm_landmarks=384,
-                       min_temporal_gap=6, min_similarity=0.75, min_inliers=15)
 
 
 def slam_phase(smi: str) -> dict:
@@ -2870,6 +2811,9 @@ MD_GM_TOL = 1e-3                   # m: host_backends' bound on a GlobalMap
 MD_GM_ACCURACY = 0.03              # m, mean position error of states 1..:
 #                                    tests/test_global_map_dcn.py:206-221
 MD_GM_MESHES = (((2, 2), ("h", "f")), ((4, 1), ("h",)))
+# the partitioned maps deal their slots over the shards (GlobalMap's
+# opt-in spread_slots): in the JAX package's cursor order, the default,
+# shard 0's slice overflows and the partition drops rows
 
 
 def perturbed_ba_window(No: int):
@@ -3040,7 +2984,7 @@ def multidevice_phase(smi: str, device: str = "cuda") -> dict:
         ("ba", dict(shape=(MD_RANKS,), w=wp, T_cam_body=SE3.identity(),
                     focal=torch.tensor(MD_BA_FOCAL), opts=bopts, repeats=2)),
         *[("global_map", dict(shape=shape, axes=axes, opts=gm_opts, lm=lm,
-                              n_kf=MD_GM_KEYFRAMES))
+                              n_kf=MD_GM_KEYFRAMES, spread_slots=True))
           for shape, axes in MD_GM_MESHES],
         ("dryrun", dict(n=MD_RANKS))]
     c0 = time.perf_counter()
@@ -3189,13 +3133,72 @@ def multidevice_phase(smi: str, device: str = "cuda") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the port's benchmark (svo_pro_universal_tpu_torch.bench)
+# ---------------------------------------------------------------------------
+
+# the default run's call of the bench: its code path whole, at bench.py's
+# widths, with fewer frames (12 timed VIO and SLAM frames after bench.py's
+# warm-ups) and 2 calls a stage and a BA solve, so the script stays inside
+# its time; ``--only bench`` runs it at bench.py's sizes
+BENCH_REDUCED = ["--frames", "32", "--warmup", "20", "--slam-frames", "28",
+                 "--slam-warmup", "16", "--stage-reps", "2", "--ba-reps", "2"]
+
+
+def bench_phase(smi: str, argv: list) -> dict:
+    """``svo_pro_universal_tpu_torch.bench.main(argv)`` on the card in this
+    process: its one JSON line must parse and carry every key of its
+    sections, name this card, be TRACKING on ≥ 90% of the timed frames of
+    its VIO and SLAM runs (``value`` > 0), and show the gathers and
+    align_level launched in both runs. Returns those runs' launches."""
+    args = port_bench.parse_args(argv)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        port_bench.main(argv)
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError) as e:
+        fail(f"bench: no JSON line ({e}): {lines[-3:]}")
+    missing = port_bench.missing_keys(line, args)
+    emit({"phase": "bench", "card": smi, "argv": argv, "seconds": seconds,
+          "missing_keys": missing, "line": line})
+    if missing:
+        fail(f"bench: the line lacks {missing}")
+    if line["card"] != smi:
+        fail(f"bench: card {line['card']!r}, nvidia-smi {smi!r}")
+    runs = {"vio": (line["n_tracking"], args.frames - args.warmup)}
+    if not args.no_slam:
+        runs["slam"] = (line["slam"]["n_tracking"],
+                        args.slam_frames - args.slam_warmup)
+    for run, (n_tracking, n_timed) in runs.items():
+        if n_tracking < 0.9 * n_timed:
+            fail(f"bench: {run} TRACKING on {n_tracking}/{n_timed} timed "
+                 "frames")
+        launches = line["launches"][run]
+        if min(launches["gather_tiles"], launches["gather_tiles_ring"],
+               launches["align_level"]) <= 0:
+            fail(f"bench: {run} launches {launches}")
+    if line["value"] <= 0:
+        fail(f"bench: value {line['value']}")
+    return line["launches"]
+
+
 def only_phases(smi: str, names: list) -> None:
     """``--only``: the named host and entry-point phases on their own
     inputs, for development calls (no kernels line, no result line; the
     euroc phase compared with session stamps when host_vio runs too).
     ``host_vio_epoch`` (here only) is host_vio at EuRoC-epoch stamps
     through the same loop; with host_vio, ``epoch_effect`` prints the
-    position gap between the two a frame."""
+    position gap between the two a frame. ``bench`` runs the port's
+    benchmark at bench.py's sizes."""
+    if "bench" in names:
+        bench_phase(smi, [])
+        names = [n for n in names if n != "bench"]
+        if not names:
+            return
     frames = [syn.render_textured_plane(gt_pose(t), INTR, W, H, PLANE_Z)
               for t in range(N_FRAMES)]
     if {"host_mono", "checkpoint"} & set(names):
@@ -3363,6 +3366,7 @@ def main() -> None:
     rig_counts = stereo_phases(smi)
     host_backends_phase(smi)
     md_counts = multidevice_phase(smi)
+    bench_counts = bench_phase(smi, BENCH_REDUCED)
 
     kernels = []
     for k in _cuda.KERNELS:
@@ -3376,6 +3380,8 @@ def main() -> None:
             **{f"launches_{kind}": cnt[k.name]
                for kind, cnt in (rig_counts | host_counts).items()},
             launches_multidevice=md_counts[k.name],
+            launches_bench_vio=bench_counts["vio"][k.name],
+            launches_bench_slam=bench_counts["slam"][k.name],
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"])

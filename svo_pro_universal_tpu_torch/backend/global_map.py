@@ -28,11 +28,16 @@ copy (``sharded_ba.partition_observations``, then ``distributed_optimize``)
 and copies the states and landmarks back, so the stored observation rows
 keep their insertion order; dropped rows are counted in
 ``last_dropped_obs`` and warned about. Every rank makes the same calls
-(SPMD). The JAX package hands out landmark slots in cursor order, so the
-first L/n landmarks all fall in shard 0 and its slice overflows as soon as
-they are seen more than No/n times; here the cursor is dealt round-robin
-over the shards (slot = (c mod n)·L/n + c div n), which leaves a one-shard
-map as it was and spreads a partitioned one evenly.
+(SPMD).
+
+Landmark slots are handed out in cursor order (slot = cursor mod L), as
+the JAX package does (global_map.py:170-176). With a mesh that crowds
+shard 0: the first L/n landmarks all fall in its slice, which overflows
+as soon as they are seen more than No/n times, and the partition drops the
+rows beyond it. ``spread_slots=True`` (the port's opt-in fix, off by
+default) deals the cursor round-robin over the shards instead (slot =
+(c mod n)·L/n + c div n, c = cursor mod L), which leaves a one-shard map
+as it was and spreads a partitioned one evenly.
 """
 
 from __future__ import annotations
@@ -80,13 +85,15 @@ def _anchor(sigma_t: float, sigma_r: float, device) -> torch.Tensor:
 class GlobalMap:
     def __init__(self, cam_focal, T_cam_body: SE3,
                  opts: GlobalMapOptions = GlobalMapOptions(),
-                 mesh=None, mesh_axes: tuple | None = None, device=None):
+                 mesh=None, mesh_axes: tuple | None = None, device=None,
+                 spread_slots: bool = False):
         if mesh is None and mesh_axes is not None:
             raise ValueError("GlobalMap: mesh_axes without a mesh")
         self.mesh = mesh
         self.mesh_axes = (tuple(mesh_axes or (FEATURE_AXIS,))
                           if mesh is not None else None)
         self._n_shards = 1 if mesh is None else mesh.size(self.mesh_axes)
+        self.spread_slots = spread_slots
         if opts.max_landmarks % self._n_shards or \
                 opts.max_obs % self._n_shards:
             raise ValueError(f"max_landmarks {opts.max_landmarks} and "
@@ -174,9 +181,10 @@ class GlobalMap:
     def _lm_slot(self, lid: int) -> int:
         if lid in self.lid2slot:
             return self.lid2slot[lid]
-        c = self._lm_cursor % self.opts.max_landmarks
-        n = self._n_shards
-        slot = (c % n) * (self.opts.max_landmarks // n) + c // n
+        slot = c = self._lm_cursor % self.opts.max_landmarks
+        if self.spread_slots:
+            n = self._n_shards
+            slot = (c % n) * (self.opts.max_landmarks // n) + c // n
         self._lm_cursor += 1
         old = self.slot2lid.pop(slot, None)
         if old is not None:

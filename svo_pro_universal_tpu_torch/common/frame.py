@@ -48,6 +48,11 @@ class FrameState(NamedTuple):
         """Level 0 of the padded pyramid: the full-resolution image."""
         return self.pyramid[..., 0, :, :]
 
+    @property
+    def img_shape(self) -> tuple[int, int]:
+        """(H, W) of the padded pyramid (its level 0)."""
+        return tuple(self.pyramid.shape[-2:])
+
     def valid_mask(self) -> torch.Tensor:
         return ft.is_valid(self.ftype)
 
@@ -57,6 +62,24 @@ class FrameState(NamedTuple):
     @property
     def T_world_cam(self) -> SE3:
         return self.T_cam_world.inverse()
+
+    @property
+    def T_body_world(self) -> SE3:
+        """IMU/body-from-world (reference: T_imu_world)."""
+        return self.T_cam_body.inverse().compose(self.T_cam_world)
+
+    def pos(self) -> torch.Tensor:
+        """Camera centre in world coordinates."""
+        return self.T_world_cam.t
+
+    def set_pose_cam_world(self, T_cam_world: SE3) -> "FrameState":
+        return self._replace(T_cam_world=T_cam_world)
+
+    def seed_pos_in_frame(self, idx) -> torch.Tensor:
+        """Position (camera frame) of seed ``idx`` at its current mean
+        depth (reference: frame.h getSeedPosInFrame)."""
+        mu = torch.clamp(self.seed_state[idx, 0], min=1e-12)
+        return self.f[idx] * (1.0 / mu)[..., None]
 
 
 def frame_map(fn, *frames: FrameState) -> FrameState:

@@ -12,7 +12,9 @@ instead of being computed every frame and selected. That read, and the
 upload of the uint8 image, are the frame's synchronizations with the card
 (the RANSAC's eigh/SVD add their own on the few frames that run it);
 everything else is queued asynchronously. The pose trace stays on the
-device until ``drain()``.
+device until ``drain()``; ``block()`` waits for the queued work and reads
+nothing back, and ``sync=True`` makes ``add_image`` return the frame's
+``FrameResult`` (one more read; JAX pipeline.py:77-87, 442-452).
 
 Initialization: OneShot (every first-frame feature becomes a landmark at
 ``cfg.init.expected_avg_depth``) or, for every other ``init_method`` as in
@@ -36,7 +38,8 @@ from svo_pro_universal_tpu_torch.common.point import (
 from svo_pro_universal_tpu_torch.config import Config
 from svo_pro_universal_tpu_torch.frontend import initialization as init_mod
 from svo_pro_universal_tpu_torch.frontend.frame_handler import (
-    N_HYPOTHESES, Stage, StagePrograms, is_keyframe)
+    N_HYPOTHESES, FrameResult, Stage, StagePrograms, TrackingQuality,
+    is_keyframe)
 from svo_pro_universal_tpu_torch.frontend.frame_handler import (
     zeroed_ring as _zeroed)
 from svo_pro_universal_tpu_torch.frontend.map import (
@@ -71,12 +74,18 @@ class WorldState(NamedTuple):
 
 class DevicePipelineMono(StagePrograms):
     """Mono VO: one tracking step per frame, a keyframe step when the
-    keyframe policy fires, OneShot or FivePoint initialization."""
+    keyframe policy fires, OneShot or FivePoint initialization.
+
+    ``sync=True`` makes ``add_image`` return the frame's ``FrameResult``
+    (tests, debugging); the default returns None."""
 
     def __init__(self, cfg: Config, cam: proj.Camera,
                  T_cam_body: Optional[SE3] = None, seed: int = 0,
-                 imu_handler=None, trace_capacity: int = 8192, device=None):
+                 imu_handler=None, trace_capacity: int = 8192,
+                 sync: bool = False, device=None):
         super().__init__(cfg, cam, T_cam_body=T_cam_body, device=device)
+        self.sync = sync
+        self.frame_count = 0
         self.seed = seed
         self.imu = imu_handler
         self._last_ts: Optional[float] = None
@@ -321,12 +330,34 @@ class DevicePipelineMono(StagePrograms):
             q = q.pin_memory().to(self.device, non_blocking=True)
         return SE3(q.to(self.device), self.world.T_rel_prev.t)
 
-    def add_image(self, img, timestamp: float) -> None:
-        """Feed one image (uint8 [H, W], uploaded as uint8)."""
+    def add_image(self, img, timestamp: float) -> Optional[FrameResult]:
+        """Feed one image (uint8 [H, W], uploaded as uint8). Returns the
+        frame's ``FrameResult`` with ``sync=True``, else None."""
+        self.frame_count += 1
         prior = self._motion_prior(timestamp)
         self.world, _, _ = self.step(self.world, img,
                                      self._rel_ts(timestamp), prior)
         self._last_ts = timestamp
+        if self.sync:
+            return self._sync_result()
+        return None
+
+    def _sync_result(self) -> FrameResult:
+        """The newest trace entry as a ``FrameResult`` (JAX
+        pipeline.py:442-452): its pose read back, its stage, tracked count
+        and keyframe flag."""
+        p = min(self.world.trace_ptr, self.trace_capacity) - 1
+        T = SE3(self.world.trace_q[p], self.world.trace_t[p])
+        stage, n_tracked, is_kf, _ = self.world.trace_meta[p]
+        return FrameResult(T.as_matrix().cpu().numpy(), Stage(int(stage)),
+                           int(n_tracked), TrackingQuality.GOOD,
+                           bool(is_kf))
+
+    def block(self) -> None:
+        """Wait for the work queued on the pipeline's device; nothing is
+        read back (on the CPU there is nothing to wait for)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @property
     def stage(self) -> Stage:

@@ -99,4 +99,5 @@ class DevicePipelineArray(RigPipelineBase):
         """Feed one image per camera (uint8 [H, W] each, cam0 first)."""
         if len(imgs) != self.n_cams:
             raise ValueError(f"{len(imgs)} images for {self.n_cams} cameras")
+        self.frame_count += 1
         self._add_images(imgs, timestamp)

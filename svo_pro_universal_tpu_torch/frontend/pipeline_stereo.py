@@ -95,7 +95,8 @@ class RigPipelineBase(DevicePipelineMono):
                        for T in T_body_cams[1:]]          # T_ci_c0
         self.joint_alignment = joint_alignment
         super().__init__(cfg, cams[0], T_cam_body=T0.inverse(), seed=seed,
-                         trace_capacity=trace_capacity, device=dev)
+                         trace_capacity=trace_capacity, sync=False,
+                         device=dev)
         self._st_opts = st.options_from_config(cfg)
 
     def _secondary_pyramids(self, world) -> tuple[list, list]:
@@ -235,4 +236,5 @@ class DevicePipelineStereo(RigPipelineBase):
 
     def add_image_pair(self, img0, img1, timestamp: float) -> None:
         """Feed one stereo pair (uint8 [H, W] each)."""
+        self.frame_count += 1
         self._add_images((img0, img1), timestamp)

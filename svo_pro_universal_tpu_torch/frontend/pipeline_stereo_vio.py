@@ -124,6 +124,7 @@ class DevicePipelineStereoVIO(DevicePipelineStereo):
     def add_image_pair(self, img0, img1, timestamp: float) -> None:
         """Feed one stereo pair (uint8 [H, W] each); the IMU must hold the
         measurements up to ``timestamp``."""
+        self.frame_count += 1
         m = self._imu_m
         aux = self._aux(timestamp)
         imgs, aux_d = self._upload(

@@ -78,7 +78,8 @@ class DevicePipelineVIO(DevicePipelineMono):
         self._gravity = gravity
         super().__init__(cfg, cam, T_cam_body=T_cam_body, seed=seed,
                          imu_handler=imu_handler,
-                         trace_capacity=trace_capacity, device=device)
+                         trace_capacity=trace_capacity, sync=False,
+                         device=device)
         # with a window backend, landmark refinement is the BACKEND's job
         # (JAX pipeline_vio.py:99-106): no per-frame structure GN
         self._structure_max_pts = 0
@@ -187,6 +188,7 @@ class DevicePipelineVIO(DevicePipelineMono):
 
     def add_image(self, img, timestamp: float) -> None:
         """One upload, one pass through the state machine."""
+        self.frame_count += 1
         m = self._imu_m
         aux = self._aux(timestamp)
         img_d, aux_d = self._upload(img, aux)
@@ -199,7 +201,8 @@ class DevicePipelineVIO(DevicePipelineMono):
 
     def add_images_batched(self, imgs, timestamps) -> None:
         """The JAX package's throughput API (one scanned program per batch
-        there); here a loop of :meth:`add_image`. All IMU measurements up
-        to ``timestamps[-1]`` must already be in the handler."""
+        there); here a loop of :meth:`add_image`, which counts each frame
+        in ``frame_count``. All IMU measurements up to ``timestamps[-1]``
+        must already be in the handler."""
         for img, ts in zip(imgs, timestamps):
             self.add_image(img, float(ts))

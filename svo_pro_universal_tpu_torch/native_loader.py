@@ -10,6 +10,8 @@ that fails raises with the compiler's log. Which decoder a run uses is the
 caller's explicit choice (``decoder("native")`` / ``decoder("numpy")``,
 the runners' ``--png-decoder``): ``toolchain_check`` says whether the
 native one can be built where it runs, and nothing falls back silently.
+``native_available`` and ``decode_png_gray8`` keep the JAX package's
+names and contract (None where the library is absent) for its callers.
 """
 
 from __future__ import annotations
@@ -123,6 +125,28 @@ def decode_png_gray8_native(data: bytes) -> np.ndarray:
     if rc != 0:
         raise ValueError(f"native PNG decode failed (code {rc})")
     return out[: w.value * h.value].reshape(h.value, w.value).copy()
+
+
+def native_available() -> bool:
+    """Whether the native library builds and loads here (JAX
+    native_loader.py:60-61)."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def decode_png_gray8(data: bytes) -> np.ndarray | None:
+    """The JAX package's contract (native_loader.py:64-78): the native
+    decoder's [H, W] uint8 image, or None when the library is absent or
+    the decode fails. ``decode_png_gray8_native`` raises instead."""
+    if not native_available():
+        return None
+    try:
+        return decode_png_gray8_native(data)
+    except ValueError:
+        return None
 
 
 def _paeth(a: int, b: int, c: int) -> int:

@@ -52,6 +52,27 @@ def extract_tiles_ring(ring4: torch.Tensor, kf: torch.Tensor,
                                                     center_yx, R, T))
 
 
+def crop_tiles(tb: TileBatch, y0: torch.Tensor, x0: torch.Tensor,
+               R: int, T: int) -> TileBatch:
+    """The exact (R, T) window at absolute per-feature (y0, x0) out of a
+    larger TileBatch, as two one-hot selection products (JAX tiles.py:153;
+    a window cell outside the tile is 0). The port's tiles are already
+    exact, so no path of the port calls it."""
+    Rp, Tp = tb.shape_rt
+    if (Rp, Tp) == (R, T):
+        return tb
+    dev, dt = tb.tiles.device, tb.tiles.dtype
+    dy = (y0 - tb.y0).long()[:, None, None]
+    dx = (x0 - tb.x0).long()[:, None, None]
+    Sy = (torch.arange(Rp, device=dev)[None, None, :]
+          == dy + torch.arange(R, device=dev)[None, :, None]).to(dt)
+    Sx = (torch.arange(Tp, device=dev)[None, None, :]
+          == dx + torch.arange(T, device=dev)[None, :, None]).to(dt)
+    out = torch.einsum("nrt,nct->nrc",
+                       torch.einsum("nrh,nht->nrt", Sy, tb.tiles), Sx)
+    return TileBatch(out, y0, x0, tb.lh, tb.lw)
+
+
 def tile_bilinear(tb: TileBatch, ys: torch.Tensor, xs: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bilinear-sample every tile at [N, S] LEVEL-coordinate positions.

@@ -168,16 +168,16 @@ def global_map_feed(gm, rng: np.random.Generator, lm: np.ndarray,
 
 
 def global_map_step(device, shape, opts, lm, n_kf, axes=None,
-                    probe_shards=None) -> dict:
+                    probe_shards=None, spread_slots=False) -> dict:
     """A ``GlobalMap`` (on the mesh when ``shape`` is given, else on one
-    device) fed ``n_kf`` keyframes, then ``force_optimize``: poses,
-    landmarks by id, chi2, ``last_dropped_obs`` and its warnings (the
-    feed of test_global_map_dcn.py: focal 300, seed 11). With
-    ``probe_shards``, also the rows ``partition_observations`` would drop
-    from the final window over that many shards."""
+    device; ``spread_slots`` as its option) fed ``n_kf`` keyframes, then
+    ``force_optimize``: poses, landmarks by id, chi2, ``last_dropped_obs``
+    and its warnings (the feed of test_global_map_dcn.py: focal 300, seed
+    11). With ``probe_shards``, also the rows ``partition_observations``
+    would drop from the final window over that many shards."""
     mesh = None if shape is None else make_mesh(shape, device)
     gm = GlobalMap(300.0, SE3.identity(), opts, mesh=mesh, mesh_axes=axes,
-                   device=device)
+                   device=device, spread_slots=spread_slots)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         (_, true_p), feed = _timed(device, lambda: global_map_feed(
@@ -195,6 +195,21 @@ def global_map_step(device, shape, opts, lm, n_kf, axes=None,
                 probe_dropped=probe, feed_wall_ms=feed["wall_ms"], **info)
 
 
+def global_map_slots_step(device, shape, opts, lm, n_kf, shards, axes=None,
+                          spread_slots=False) -> dict:
+    """A ``GlobalMap`` on the mesh (``spread_slots`` as its option) fed
+    ``n_kf`` keyframes of ``global_map_feed``, with no solve when
+    ``opts.optimize_every`` > ``n_kf``: its slot of each landmark id, and
+    the rows ``partition_observations`` drops from its window over
+    ``shards`` shards."""
+    gm = GlobalMap(300.0, SE3.identity(), opts,
+                   mesh=make_mesh(shape, device), mesh_axes=axes,
+                   device=device, spread_slots=spread_slots)
+    global_map_feed(gm, np.random.default_rng(11), lm, n_kf)
+    return dict(lid2slot=dict(gm.lid2slot),
+                dropped=partition_observations(gm.window, shards)[1])
+
+
 def dryrun_step(device, n) -> dict:
     """``parallel.dryrun``'s steps in these ranks."""
     out, info = _timed(device, lambda: dryrun.dryrun_steps(n, device))
@@ -202,7 +217,8 @@ def dryrun_step(device, n) -> dict:
 
 
 STEPS = {"align": align_step, "seeds": seeds_step, "ba": ba_step,
-         "global_map": global_map_step, "dryrun": dryrun_step}
+         "global_map": global_map_step,
+         "global_map_slots": global_map_slots_step, "dryrun": dryrun_step}
 
 
 def run_steps(device, steps: list) -> dict:

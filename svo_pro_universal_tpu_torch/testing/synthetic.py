@@ -15,7 +15,8 @@ mono-VIO input (``bench_sequence``: its sphere+plane scene along its
 same scene seen by a camera rig (``rig_sequence``), with the EuRoC stereo
 rig of examples/param/euroc_stereo.yaml (``euroc_stereo_rig``); the
 JAX toolkit's ``grid_features`` and ``synthetic_ba_window`` (bench.py's
-backend window).
+backend window), and its own sphere scene (``render_sphere_view``,
+``sphere_depth_along``: radius 1.2 m, seen by ``CAM``).
 """
 
 from __future__ import annotations
@@ -259,7 +260,9 @@ def loop_twist(t: float) -> np.ndarray:
                      0.02 * np.sin(a), 0.03 * np.sin(a), 0.0], np.float32)
 
 
-def _sphere_texture(p: torch.Tensor) -> torch.Tensor:
+def sphere_texture(p: torch.Tensor) -> torch.Tensor:
+    """Intensity of 3D points: smooth sinusoids plus a hard 3D checker
+    (corner-rich junctions everywhere); both sphere scenes wear it."""
     x, y, z = p.unbind(-1)
     smooth = (115.0 + 35.0 * torch.sin(4.0 * x) * torch.cos(5.0 * y)
               + 25.0 * torch.sin(3.0 * (x + z)))
@@ -297,7 +300,80 @@ def render_sphere_scene(T_cam_world: np.ndarray, cam: proj.Camera,
                                             1e-9)
     t = torch.where(hit & (ts > 0), ts, tp)
     p = o[None] + t[:, None] * d
-    return _sphere_texture(p).reshape(cam.height, cam.width).cpu().numpy()
+    return sphere_texture(p).reshape(cam.height, cam.width).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# the JAX toolkit's own sphere scene (svo_pro_universal_tpu/testing/
+# synthetic.py:19, 53-120): a sphere of radius 1.2 m before the background
+# plane, seen by ``CAM`` (160×120, 150 px focal length), posed by ``SE3``.
+# Not bench.py's scene (radius 1.4 m at 752×480, ``render_sphere_scene``).
+# ---------------------------------------------------------------------------
+
+CAM = proj.Camera.pinhole(*INTRINSICS, W, H)
+SPHERE_C = torch.tensor([0.0, 0.0, 2.8])
+SPHERE_R = 1.2
+
+
+def plane_depth(f: torch.Tensor, plane_z: float = PLANE_Z,
+                slope=(0.0, 0.0)) -> torch.Tensor:
+    """Distance along bearings ``f`` to the plane n·x = plane_z, n =
+    (slope_x, slope_y, 1)."""
+    n = torch.tensor([slope[0], slope[1], 1.0], dtype=f.dtype,
+                     device=f.device)
+    return plane_z / torch.clamp(f @ n, min=1e-9)
+
+
+def sphere_hit(origin: torch.Tensor, dirs: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Closest positive ray-sphere intersection: (t, hit mask); t is 1
+    where there is no hit."""
+    oc = origin - SPHERE_C.to(origin)
+    b = torch.sum(dirs * oc[None], dim=-1)
+    c = torch.sum(oc * oc) - SPHERE_R ** 2
+    disc = b * b - c
+    t = -b - torch.sqrt(torch.clamp(disc, min=0.0))
+    hit = (disc > 0) & (t > 0)
+    return torch.where(hit, t, 1.0), hit
+
+
+def _scene_hit(origin: torch.Tensor, dirs: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Closest hit in the sphere + background-plane scene: (t, hit)."""
+    t_s, ok_s = sphere_hit(origin, dirs)
+    n = torch.tensor(BG_PLANE_N, dtype=dirs.dtype, device=dirs.device)
+    denom = dirs @ n
+    t_p = (BG_PLANE_D - origin @ n) / torch.where(torch.abs(denom) > 1e-9,
+                                                  denom, 1e-9)
+    ok_p = t_p > 0
+    t = torch.where(ok_s, t_s, torch.where(ok_p, t_p, 1.0))
+    return t, ok_s | ok_p
+
+
+def render_sphere_view(T_cam_world: SE3, cam: proj.Camera = CAM
+                       ) -> torch.Tensor:
+    """float32 [H, W] exact render of the sphere + plane scene from
+    ``T_cam_world``, on its device; 0 where no surface is hit."""
+    dev = T_cam_world.t.device
+    yy, xx = torch.meshgrid(torch.arange(cam.height, device=dev),
+                            torch.arange(cam.width, device=dev),
+                            indexing="ij")
+    uv = torch.stack([xx, yy], -1).reshape(-1, 2).to(torch.float32)
+    f = proj.backproject(cam.to(dev), uv)
+    T_world_cam = T_cam_world.inverse()
+    d = T_world_cam.rotate(f)
+    t, ok = _scene_hit(T_world_cam.t, d)
+    p = T_world_cam.t[None] + t[:, None] * d
+    vals = torch.where(ok, sphere_texture(p), 0.0)
+    return vals.reshape(cam.height, cam.width).to(torch.float32)
+
+
+def sphere_depth_along(T_cam_world: SE3, f_cam: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ground-truth distance along camera bearings to the scene, and
+    whether a surface is hit."""
+    T_world_cam = T_cam_world.inverse()
+    return _scene_hit(T_world_cam.t, T_world_cam.rotate(f_cam))
 
 
 def degrade_sequence(frames, seed=0, exposure_drift=0.25, vignette=0.35,

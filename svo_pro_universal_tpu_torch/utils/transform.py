@@ -221,6 +221,13 @@ class SE3(NamedTuple):
         return SE3(quat_normalize(quat_multiply(self.q, other.q)),
                    quat_rotate(self.q, other.t) + self.t)
 
+    def __matmul__(self, other):
+        """``self @ other``: the composition for an ``SE3``, else the
+        transform applied to the points ``other``."""
+        if isinstance(other, SE3):
+            return self.compose(other)
+        return self.apply(other)
+
     def inverse(self) -> "SE3":
         qinv = quat_conjugate(self.q)
         return SE3(qinv, -quat_rotate(qinv, self.t))

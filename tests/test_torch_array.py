@@ -54,14 +54,17 @@ def array_run():
     gt = trajectory(N_FRAMES)
     bundles = [uint8_views(bundle(T)) for T in gt]
     h = JaxArray(cfg, [CAM] * 3, T_BODY_CAMS, trace_capacity=64)
-    jworlds = []
+    jworlds, counts = [], []
     for t, imgs in enumerate(bundles):
         jworlds.append(h.world)
+        counts.append(h.frame_count)
         h.add_image_bundle(imgs, t * 0.05)
     jworlds.append(h.world)
+    counts.append(h.frame_count)
     mats, meta = h.drain()
     return dict(cfg=cfg, gt=gt, bundles=bundles, jworlds=jworlds,
-                worlds=[to_dict(w) for w in jworlds], mats=mats, meta=meta)
+                worlds=[to_dict(w) for w in jworlds], mats=mats, meta=meta,
+                frame_counts=counts)
 
 
 def _port(cfg, joint=False, device="cpu", cams=None):
@@ -172,3 +175,12 @@ def test_convert_round_trip_array(array_run):
     for key in ("ring", "pool", "last_frame", "pyrs_cur", "pyrs_prev",
                 "T_rel_prev", "stage", "trace_ptr"):
         assert_tree_equal(back[key], jw[key])
+
+
+def test_array_frame_count_matches_jax(array_run):
+    r = array_run
+    pipe = _port(r["cfg"])
+    n = 3
+    for t in range(n):
+        pipe.add_image_bundle(r["bundles"][t], t * 0.05)
+    assert pipe.frame_count == r["frame_counts"][n] == n

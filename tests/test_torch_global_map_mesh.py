@@ -11,6 +11,12 @@ partitioned map: keyframe positions and landmarks (by id) within 5e-4, the
 same landmark ids, chi2 within 2%; no observation row dropped, no warning,
 and every rank with the same result. The one-device port map is held to
 JAX's at the same bounds.
+
+Slot order: the same feed over 40 keyframes at the default capacities (32
+states, 1024 slots, 4096 rows), without a solve, into a map on a 4-rank
+mesh. By default the port hands out the slots of JAX's ``_lm_slot``
+(cursor order) and its window's 4-shard partition drops as many rows as
+JAX's window's; with the opt-in ``spread_slots`` it drops none.
 """
 
 import numpy as np
@@ -19,6 +25,8 @@ import pytest
 from svo_pro_universal_tpu.backend.global_map import GlobalMap as JGlobalMap
 from svo_pro_universal_tpu.backend.global_map import (
     GlobalMapOptions as JOptions)
+from svo_pro_universal_tpu.parallel.sharded_ba import (
+    partition_observations as jpartition)
 from svo_pro_universal_tpu.utils.transform import SE3 as JSE3
 from svo_pro_universal_tpu_torch.backend.global_map import GlobalMapOptions
 from svo_pro_universal_tpu_torch.parallel.mesh import launch
@@ -31,6 +39,9 @@ OPTS = dict(max_keyframes=12, max_landmarks=256, max_obs=4096,
             optimize_every=100, ba_iters=6)
 MESHES = {"(2, 2) over (h, f)": ((2, 2), ("h", "f")),
           "(4, 1) over (h,)": ((4, 1), ("h",))}
+SLOT_KEYFRAMES = 40                     # > 32 states: the ring evicts
+SLOT_OPTS = dict(optimize_every=SLOT_KEYFRAMES + 1)   # no solve
+SHARDS = 4
 
 
 def _landmarks():
@@ -54,7 +65,21 @@ def rank_maps():
                                  opts=GlobalMapOptions(**OPTS),
                                  lm=_landmarks(), n_kf=10))
              for shape, axes in MESHES.values()]
-    return launch(4, run_steps, "cpu", steps, device="cpu")
+    steps += [("global_map_slots", dict(
+        shape=(SHARDS,), opts=GlobalMapOptions(**SLOT_OPTS), lm=_landmarks(),
+        n_kf=SLOT_KEYFRAMES, shards=SHARDS, spread_slots=spread))
+        for spread in (False, True)]
+    return launch(SHARDS, run_steps, "cpu", steps, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_slots():
+    """JAX's map fed the slot-order feed: its slot of each landmark id,
+    and the rows its window's 4-shard partition drops."""
+    gm = JGlobalMap(300.0, JSE3.identity(), JOptions(**SLOT_OPTS))
+    _feed(gm, np.random.default_rng(11), _landmarks(), SLOT_KEYFRAMES)
+    return dict(lid2slot=dict(gm.lid2slot),
+                dropped=jpartition(gm.window, SHARDS)[1])
 
 
 def _assert_close(got, ref):
@@ -84,3 +109,24 @@ def test_one_device_global_map_matches_jax(jax_map):
                           _landmarks(), 10)
     assert got["last_dropped_obs"] == 0
     _assert_close(got, jax_map)
+
+
+def test_global_map_slots_follow_jax_cursor_order(rank_maps, jax_slots):
+    # JAX's order crowds shard 0: its window's partition drops rows
+    assert jax_slots["dropped"] > 0
+    for r in rank_maps:
+        got = r["global_map_slots"]
+        assert got["lid2slot"] == jax_slots["lid2slot"]
+        assert got["dropped"] == jax_slots["dropped"]
+
+
+def test_global_map_spread_slots_drop_no_row(rank_maps, jax_slots):
+    per_shard = GlobalMapOptions().max_landmarks // SHARDS
+    for r in rank_maps:
+        got = r["global_map_slots#2"]
+        assert got["dropped"] == 0
+        assert got["lid2slot"].keys() == jax_slots["lid2slot"].keys()
+        shards = [s // per_shard for s in got["lid2slot"].values()]
+        # dealt round-robin: the shards' landmark counts differ by ≤ 1
+        counts = np.bincount(shards, minlength=SHARDS)
+        assert counts.max() - counts.min() <= 1, counts

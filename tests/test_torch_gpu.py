@@ -8,7 +8,8 @@ same inputs) rotation ≤ 1e-4 rad, translation ≤ 1e-4·depth, n_tracked
 equal. The gathers are held on both copy routes of csrc/tiles.cu (TMA at
 752 wide, plain loads at 754 and for 10×10 tiles) and in both modes (centres, origins
 given), non-finite centres included. Two ranks sharing the card align as
-one rank does (pose 1e-5)."""
+one rank does (pose 1e-5). ``DevicePipelineMono.block()`` waits for the
+card without a device→host copy."""
 
 import numpy as np
 import pytest
@@ -211,6 +212,39 @@ def test_segment_sum_is_bit_identical_on_the_card():
         dd, sd = data.cuda(), seg.cuda()
         for _ in range(5):
             assert torch.equal(segment_sum(dd, sd, n).cpu(), want)
+
+
+@pytest.mark.gpu
+def test_block_reads_nothing_back():
+    """``block()`` after 4 frames queued on the card: a torch.profiler trace
+    of the call holds no device→host copy and no stream synchronization
+    (the syncs chip_smoke's profile phase counts), only the device-wide
+    wait; after it the trace's pose equals ``sync=True``'s result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run on the card with `python -m "
+                    "pytest --noconftest tests/test_torch_gpu.py -m gpu`")
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
+    from svo_pro_universal_tpu_torch.frontend.pipeline import (
+        DevicePipelineMono)
+    frames = [syn.render_textured_plane(cs.gt_pose(t), cs.INTR, cs.W, cs.H,
+                                        cs.PLANE_Z) for t in range(4)]
+    pipes = {sync: DevicePipelineMono(
+        cs.euroc_config(), Camera.pinhole(*cs.INTR, cs.W, cs.H), sync=sync,
+        device="cuda") for sync in (False, True)}
+    results = [[p.add_image(f, t * 0.05) for t, f in enumerate(frames)]
+               for p in pipes.values()]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipes[False].block()
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if "DtoH" in n or "Memcpy" in n
+                or n == "cudaStreamSynchronize"], names
+    assert results[0] == [None] * 4
+    assert pipes[False].frame_count == pipes[True].frame_count == 4
+    mats, _ = pipes[False].drain()
+    np.testing.assert_allclose(
+        np.stack([r.T_world_cam for r in results[1]]), mats, atol=1e-5)
 
 
 @pytest.mark.gpu

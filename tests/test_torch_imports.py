@@ -4,7 +4,8 @@ any module of the JAX package (checked in a fresh interpreter, since this
 test process has both loaded); and with ``yaml``, ``PIL``, ``cv2``,
 ``matplotlib`` and ``jax`` blocked (a GPU deployment may have none of
 them) every module, runner included, imports and the three parameter
-files of examples/param load."""
+files of examples/param load, and ``python -m
+svo_pro_universal_tpu_torch.bench --help`` runs."""
 
 import json
 import subprocess
@@ -47,11 +48,11 @@ def test_port_imports_no_jax():
                  "runners.run_image_dir", "runners.run_video",
                  "parallel.mesh", "parallel.sharded_ops",
                  "parallel.sharded_ba", "parallel.dryrun",
-                 "testing.parallel_cases"):
+                 "testing.parallel_cases", "bench"):
         assert f"svo_pro_universal_tpu_torch.{name}" in out["modules"]
 
 
-BLOCKED_PROBE = """
+BLOCKER = """
 import importlib, json, pkgutil, sys
 BLOCKED = ("yaml", "PIL", "cv2", "matplotlib", "jax", "jaxlib")
 
@@ -64,6 +65,9 @@ class Block:
 
 
 sys.meta_path.insert(0, Block())
+"""
+
+BLOCKED_PROBE = BLOCKER + """
 import svo_pro_universal_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
@@ -96,3 +100,26 @@ def test_port_loads_the_param_files_without_yaml_pil_cv2_matplotlib():
     assert out["cams"] == {"euroc_mono": [752],
                            "euroc_stereo": [752, 752]}
     assert out["g"] == 9.8082
+
+
+BENCH_HELP_PROBE = BLOCKER + """
+import runpy
+sys.argv = ["svo_pro_universal_tpu_torch.bench", "--help"]
+try:
+    runpy.run_module("svo_pro_universal_tpu_torch.bench", run_name="__main__")
+except SystemExit as e:
+    code = e.code
+print(json.dumps({"code": code, "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in BLOCKED
+    or m == "svo_pro_universal_tpu" or m.startswith("svo_pro_universal_tpu."))}))
+"""
+
+
+def test_bench_help_runs_without_jax_or_yaml():
+    run = subprocess.run([sys.executable, "-c", BENCH_HELP_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    lines = run.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    assert out == {"code": 0, "loaded": []}
+    assert any("--no-slam" in ln for ln in lines)

@@ -9,7 +9,10 @@ another order), position ≤ 1 mm and rotation ≤ 0.05° (float32 GN solves
 started from the same state).
 Free run: 8 frames on each side from scratch; same stage sequence and
 positions within 5 mm of each other (plane at 2 m), the drift two float32
-implementations may accumulate over 8 frames.
+implementations may accumulate over 8 frames. The JAX run is made with
+``sync=True``, and the port's ``sync=True`` results are held to its
+``FrameResult``s at the free run's tolerances (stage, keyframe flag,
+n_tracked ±2, position ≤ 5 mm), with the same ``frame_count``.
 """
 
 import numpy as np
@@ -31,21 +34,29 @@ from torch_parity_utils import (camera_dict, port_config, rotation_angle_deg,
 N_FRAMES = 8
 
 
-def _jax_run(imgs):
-    """The JAX world before each frame, and the JAX trace."""
+def _jax_run(imgs, sync=False):
+    """The JAX world before each frame, and the JAX trace (with ``sync``
+    also each frame's FrameResult and the final frame_count)."""
     cfg = slice_config()
-    h = JaxPipeline(cfg, CAM, trace_capacity=64)
-    worlds = []
+    h = JaxPipeline(cfg, CAM, trace_capacity=64, sync=sync)
+    worlds, results = [], []
     for t, img in enumerate(imgs):
         worlds.append(to_dict(h.world))
-        h.add_image(img, t * 0.05)
+        results.append(h.add_image(img, t * 0.05))
     mats, meta = h.drain()
+    if sync:
+        return imgs, cfg, worlds, mats, meta, results, h.frame_count
     return imgs, cfg, worlds, mats, meta
 
 
 @pytest.fixture(scope="module")
-def jax_run():
-    return _jax_run(sequence(N_FRAMES))
+def jax_synced():
+    return _jax_run(sequence(N_FRAMES), sync=True)
+
+
+@pytest.fixture(scope="module")
+def jax_run(jax_synced):
+    return jax_synced[:5]
 
 
 def _port(cfg):
@@ -96,6 +107,35 @@ def test_slice_free_run_matches_jax(jax_run):
     assert (pmeta[:, 0] == Stage.TRACKING.value).all()
     gap = np.linalg.norm(pmats[:, :3, 3] - mats[:, :3, 3], axis=-1)
     assert gap.max() <= 5e-3, gap
+
+
+def test_sync_results_match_jax(jax_synced):
+    imgs, cfg, _, _, _, results, frame_count = jax_synced
+    port = DevicePipelineMono(port_config(cfg),
+                              convert.camera(camera_dict(CAM)),
+                              trace_capacity=64, sync=True, device="cpu")
+    got = [port.add_image(img, t * 0.05) for t, img in enumerate(imgs)]
+    assert port.frame_count == frame_count == len(imgs)
+    for k, (g, j) in enumerate(zip(got, results)):
+        assert g.stage.value == j.stage.value == Stage.TRACKING.value, k
+        assert g.is_keyframe == j.is_keyframe, k
+        assert abs(g.n_tracked - j.n_tracked) <= 2, (k, g.n_tracked,
+                                                     j.n_tracked)
+        assert g.quality.name == j.quality.name == "GOOD"
+        assert np.linalg.norm(g.T_world_cam[:3, 3]
+                              - np.asarray(j.T_world_cam)[:3, 3]) <= 5e-3, k
+    # the synced results are the trace's entries
+    mats, meta = port.drain()
+    assert [r.stage.value for r in got] == meta[:, 0].astype(int).tolist()
+    np.testing.assert_array_equal(np.stack([r.T_world_cam for r in got]),
+                                  mats)
+    # unsynced, add_image returns nothing
+    quiet = DevicePipelineMono(port_config(cfg),
+                               convert.camera(camera_dict(CAM)),
+                               trace_capacity=64, device="cpu")
+    assert quiet.add_image(imgs[0], 0.0) is None
+    assert quiet.frame_count == 1
+    quiet.block()
 
 
 def test_convert_round_trip(jax_run):

@@ -59,14 +59,17 @@ def stereo_run():
     gt = trajectory(N_FRAMES)
     pairs = [tuple(uint8_views(stereo_pair(T))) for T in gt]
     h = JaxStereo(cfg, CAM, CAM, T_BODY_CAM0, T_BODY_CAM1, trace_capacity=64)
-    jworlds = []
+    jworlds, counts = [], []
     for t, (a, b) in enumerate(pairs):
         jworlds.append(h.world)
+        counts.append(h.frame_count)
         h.add_image_pair(a, b, t * 0.05)
     jworlds.append(h.world)
+    counts.append(h.frame_count)
     mats, meta = h.drain()
     return dict(cfg=cfg, gt=gt, pairs=pairs, jworlds=jworlds,
-                worlds=[to_dict(w) for w in jworlds], mats=mats, meta=meta)
+                worlds=[to_dict(w) for w in jworlds], mats=mats, meta=meta,
+                frame_counts=counts)
 
 
 def _port(cfg, joint=False, device="cpu"):
@@ -230,3 +233,12 @@ def test_convert_round_trip_stereo(stereo_run):
     assert set(back) - {"rng"} == set(jw) - {"rng_key"}
     for key in set(jw) - {"rng_key"}:
         assert_tree_equal(back[key], jw[key])
+
+
+def test_stereo_frame_count_matches_jax(stereo_run):
+    r = stereo_run
+    pipe = _port(r["cfg"])
+    n = 3
+    for t in range(n):
+        pipe.add_image_pair(*r["pairs"][t], t * 0.05)
+    assert pipe.frame_count == r["frame_counts"][n] == n

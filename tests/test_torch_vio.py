@@ -90,14 +90,18 @@ def vio_run():
     imu = JImu(JImuParams())
     h = JaxVIO(cfg, CAM, imu_handler=imu, imu_params=JImuParams(),
                trace_capacity=64, gravity=tuple(G_W))
-    worlds = []
-    _feed(h, imu, imu_stream, frames, cam_ts,
-          before=lambda k: worlds.append(to_dict(h.world)))
+    worlds, counts = [], []
+
+    def before(k):
+        worlds.append(to_dict(h.world))
+        counts.append(h.frame_count)
+    _feed(h, imu, imu_stream, frames, cam_ts, before=before)
     worlds.append(to_dict(h.world))
+    counts.append(h.frame_count)
     mats, meta = h.drain()
     return dict(imu_stream=imu_stream, frames=frames, cam_ts=cam_ts,
                 cam_poses=cam_poses, cfg=cfg, worlds=worlds, mats=mats,
-                meta=meta)
+                meta=meta, frame_counts=counts)
 
 
 def _port(cfg):
@@ -297,6 +301,22 @@ def test_vio_free_run_in_segments_matches_jax(vio_run):
         step(k0 + i)
     n = len(meta) - k0
     assert len(gaps) >= n - 3 and len(restarts) <= 3, (gaps, restarts)
+
+
+def test_vio_frame_count_matches_jax(vio_run):
+    """frame_count after 2 frames through add_image and 2 through
+    add_images_batched equals JAX's after as many frames."""
+    r = vio_run
+    pipe, imu = _port(r["cfg"])
+    n = 4
+    for t, w, a in r["imu_stream"]:
+        if t <= r["cam_ts"][n - 1]:
+            imu.add_measurement(t, w, a)
+    for k in range(2):
+        pipe.add_image(r["frames"][k], r["cam_ts"][k])
+    pipe.add_images_batched(r["frames"][2:n], r["cam_ts"][2:n])
+    assert pipe.frame_count == r["frame_counts"][n] == n
+    assert pipe.world.trace_ptr == n
 
 
 def test_vio_pipeline_defaults_to_the_card(monkeypatch):

@@ -46,14 +46,17 @@ def run_one(root: Path, save: Path) -> None:
     cs._cuda.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # root's own package: sys.path put it first
+    from svo_pro_universal_tpu_torch.frontend.pipeline_vio import (
+        DevicePipelineVIO)
     drains = []
-    drain = cs.DevicePipelineVIO.drain
+    drain = DevicePipelineVIO.drain
 
     def keep(self):
         out = drain(self)
         drains.append(out[0])
         return out
-    cs.DevicePipelineVIO.drain = keep
+    DevicePipelineVIO.drain = keep
     cs.profile_run = lambda run, run_sync, n: {"skipped": True}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
