@@ -1,0 +1,15 @@
+"""``gather_tiles`` (csrc/tiles.cu, one launch an ``extract_tiles`` call
+from a pyramid) against its memory roofline."""
+
+import importlib.util
+from pathlib import Path
+
+_spec = importlib.util.spec_from_file_location(
+    "port_bench_roofline", Path(__file__).with_name("_roofline.py"))
+_roof = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_roof)
+
+
+def read(ctx):
+    return _roof.share(ctx, "gather_tiles_kernel", "extract_tiles",
+                       exclude="ring")
