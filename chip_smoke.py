@@ -126,9 +126,9 @@ line each:
    host_mono  ``FrameHandlerMono`` on the slice's 40 frames: the slice's
             gates, stages and keyframes equal to the slice's
             ``DevicePipelineMono`` and every pose within 1e-4 m of it.
-   stage_profile  the trace tool ``utils.stage_profile.profile_frontend``
-            (CUDA events, 4 calls a stage) on host_mono's live state, and
-            ``roofline_summary``: every stage's ms finite and positive.
+   stage_spans  the handler's tracer (``utils.perf.Tracer``, started for
+            host_mono's run): every stage span of its tracking frames
+            recorded, each one's mean ms finite and positive.
    host_vio  ``FrameHandlerVIO`` on the vio phase's first 80 frames and its
             configuration (the IMU through ``add_imu_measurement``, the
             backend's host
@@ -223,10 +223,10 @@ line each:
             ``main`` in this process (``DevicePipelineVIO`` in the vio
             phase's configuration fed as bench.py feeds it: batches of 8
             through ``add_images_batched``, ``block()`` after the warm-up
-            and after each of three chunks; then the SLAM section, the stage
-            profile and the BA window), reduced to 32 VIO frames (20
-            warm-up) and 28 SLAM frames (16 warm-up), 2 calls a stage and a
-            BA solve (``BENCH_REDUCED``): its one JSON line parses and
+            and after each of three chunks, its tracer on; then the SLAM
+            section and the BA window), reduced to 32 VIO frames (20
+            warm-up) and 28 SLAM frames (16 warm-up), 2 BA solves
+            (``BENCH_REDUCED``): its one JSON line parses and
             carries bench.py's keys, names this card, TRACKING on ≥ 90% of
             the timed frames of both runs, the gathers and align_level
             launched in both.
@@ -319,7 +319,7 @@ from svo_pro_universal_tpu_torch.testing import gather_shapes as gs
 from svo_pro_universal_tpu_torch.testing.parallel_cases import (
     global_map_step, run_steps)
 from svo_pro_universal_tpu_torch.testing import synthetic as syn
-from svo_pro_universal_tpu_torch.utils import stage_profile
+from svo_pro_universal_tpu_torch.utils import perf
 from svo_pro_universal_tpu_torch.utils.transform import (
     SE3, matrix_to_quat, se3_exp)
 
@@ -887,6 +887,7 @@ def vio_phase(smi: str) -> dict:
     cfg = vio_config()
     run = VioRun(cam, cfg, imu_meas, "cuda", VIO_FRAMES)
     pipe = run.pipe
+    pipe.tracer.start()                # the backend's LM counters
     events: list = []
     time_methods(pipe, VIO_STAGES, events)
     time_methods(pipe.backend, BACKEND_PROGRAMS, events)
@@ -937,12 +938,7 @@ def vio_phase(smi: str) -> dict:
         "first_tracking_frame": first_track,
         "backend_keyframes": w.backend_k,
         "backend_chi2": float(w.backend_chi2),
-        # LM iterations of the window solve, and those whose state step a
-        # once-seen landmark voided (window_ba.solve_schur)
-        "backend_lm_iterations": pipe.backend.lm_iterations,
-        "backend_lm_voided": int(pipe.backend.lm_voided),
-        "backend_lm_voided_share": (int(pipe.backend.lm_voided)
-                                    / max(pipe.backend.lm_iterations, 1)),
+        **lm_fields(pipe.tracer),
         "depth_med_final": float(w.depth_state[0]),
         "stage_ms_per_call": {k.lstrip("_"): t / c
                               for k, (c, t) in stage_ms.items()},
@@ -1067,6 +1063,7 @@ def slam_phase(smi: str) -> dict:
     so = slam_options()
     run = VioRun(cam, cfg, imu_meas, "cuda", n_frames, slam_opts=so)
     pipe = run.pipe
+    pipe.tracer.start()                # the backend's LM counters
     events: list = []
     time_methods(pipe, SLAM_STAGES, events)
     time_methods(pipe.backend, BACKEND_PROGRAMS, events)
@@ -1122,9 +1119,7 @@ def slam_phase(smi: str) -> dict:
         "loop_frames": loop_frames, "candidate_frames": cand_frames,
         "backend_keyframes": w.backend_k,
         "backend_chi2": float(w.backend_chi2),
-        "backend_lm_iterations": pipe.backend.lm_iterations,
-        "backend_lm_voided_share": (int(pipe.backend.lm_voided)
-                                    / max(pipe.backend.lm_iterations, 1)),
+        **lm_fields(pipe.tracer),
         "stage_ms_per_call": {k.lstrip("_"): t / c
                               for k, (c, t) in stage_ms.items()},
         "stage_calls": {k.lstrip("_"): c for k, (c, _) in stage_ms.items()},
@@ -1305,6 +1300,7 @@ def rig_run(smi: str, kind: str, cams: list, T_body_cams: list, views: list,
     run = RigRun(kind, cams, T_body_cams, cfg, imu_meas, "cuda", n_frames,
                  joint_alignment)
     pipe = run.pipe
+    pipe.tracer.start()                # the backend's LM counters
     events: list = []
     names = STAGES + (tri,)
     if kind == "stereo_vio":
@@ -1378,10 +1374,7 @@ def rig_run(smi: str, kind: str, cams: list, T_body_cams: list, views: list,
         line |= {"window_solve": STEREO_VIO_SOLVE,
                  "backend_keyframes": w.backend_k,
                  "backend_chi2": float(w.backend_chi2),
-                 "backend_lm_iterations": pipe.backend.lm_iterations,
-                 "backend_lm_voided_share": (
-                     int(pipe.backend.lm_voided)
-                     / max(pipe.backend.lm_iterations, 1))}
+                 **lm_fields(pipe.tracer)}
     if first_track >= 0:
         gt = np.stack([np.linalg.inv(T)[:3, 3]
                        for T in poses[first_track:n_frames]])
@@ -1583,7 +1576,11 @@ HOST_VIO_FRAMES = 80               # the vio input's first 80 (cut from 140:
 #                                    the euroc phase reruns them at epoch
 #                                    stamps through the runner)
 HOST_MONO_TOL = 1e-4               # m: host vs device mono path
-PROFILE_REPS = 4                   # stage_profile calls a stage (+1 warm-up)
+# the spans of a host handler's tracking frames (utils.perf); the
+# structure stage's only where its point budget is not 0
+STAGE_SPANS = ("pyramid_creation", "tracking_step", "sparse_img_align",
+               "reproject", "pose_optimizer", "point_optimizer",
+               "depth_filter", "kf_policy", "keyframe_step", "frame")
 HOST_STEREO_FRAMES = 60
 HOST_ARRAY_FRAMES = 40
 HOST_RIG_WARMUP = 10
@@ -1717,6 +1714,7 @@ def host_vio_phase(smi: str, poses: list, frames: list, imu_meas: list,
     cfg = vio_config()
     run = host_vio_run(cam, cfg, imu_meas, "cuda", t0)
     h = run.h
+    h.tracer.start()                   # the backend's LM counters
     events: list = []
     time_methods(h, HOST_STAGES, events)
     time_methods(h.backend, HOST_BACKEND, events)
@@ -1747,9 +1745,7 @@ def host_vio_phase(smi: str, poses: list, frames: list, imu_meas: list,
             "keyframes_after_first": int(sum(
                 r.is_keyframe for r in run.results[1:])),
             "backend_keyframes": be.n_states, "backend_chi2": float(chi2),
-            "backend_lm_iterations": be.lm_iterations,
-            "backend_lm_voided_share": (int(be.lm_voided)
-                                        / max(be.lm_iterations, 1)),
+            **lm_fields(h.tracer),
             "gather_launches_in_init_frames": init_gathers,
             "jax_host_reference_cpu": (JAX_HOST_VIO_EPOCH_CPU if t0
                                        else JAX_HOST_VIO_CPU)}
@@ -1805,6 +1801,7 @@ def host_mono_phase(smi: str, frames: list, slice_mats: np.ndarray,
     cam = Camera.pinhole(*INTR, W, H)
     cfg = euroc_config()
     h = FrameHandlerMono(cfg, cam, device="cuda")
+    h.tracer.start()                   # read by stage_spans_step
     run = HostRun(h, h.add_image, [], "cuda")
     events: list = []
     time_methods(h, STAGES, events)
@@ -1831,27 +1828,39 @@ def host_mono_phase(smi: str, frames: list, slice_mats: np.ndarray,
         fail(f"host_mono: {gap.max()} m from the slice's DevicePipelineMono"
              f", stages/keyframes equal {same}")
     launch_gates("host_mono", counts, stage_ms, cfg)
-    stage_profile_step(smi, h)
+    stage_spans_step(smi, h, int(kf[1:].sum()))
     return counts, (mats, stages, kf)
 
 
-def stage_profile_step(smi: str, h) -> None:
-    """The trace tool on the card: ``utils.stage_profile.profile_frontend``
-    (CUDA events, PROFILE_REPS calls a stage) on ``h``'s live state after
-    its run, and ``roofline_summary`` at the H100's memory rate; every
-    stage's ms finite and positive, both image-touching stages bounded."""
-    prof = stage_profile.profile_frontend(h, h.ring, h.pool, h.last_frame,
-                                          h._depth_state, reps=PROFILE_REPS)
-    roof = stage_profile.roofline_summary(prof, H, W, h.n_levels)
-    emit({"phase": "stage_profile", "card": smi, "handler": type(h).__name__,
-          "reps": PROFILE_REPS, "stage_ms": prof, "roofline": roof})
-    bad = {k: v for k, v in prof.items() if not (np.isfinite(v) and v > 0)}
-    if bad or len(prof) != 8:
-        fail(f"stage_profile: stage ms {prof}")
-    if set(roof) != {"pyramid_creation", "sparse_img_align"} or not all(
-            np.isfinite(r["x_from_roof"]) and r["x_from_roof"] > 0
-            for r in roof.values()):
-        fail(f"stage_profile: roofline {roof}")
+def stage_spans_step(smi: str, h, keyframes: int) -> None:
+    """The handler's tracer after its run (started before it), which made
+    ``keyframes`` keyframes after the first frame: each of ``STAGE_SPANS``
+    recorded (the structure stage's where its budget is not 0, the
+    keyframe step's where there was a keyframe), one keyframe step a
+    keyframe, every span's mean host ms a call finite and positive."""
+    frames = h.tracer.take()
+    ms = perf.mean_ms(frames)
+    n_kf = len(perf.span_ms(frames, "keyframe_step"))
+    emit({"phase": "stage_spans", "card": smi, "handler": type(h).__name__,
+          "frames": len(frames), "keyframe_steps": n_kf,
+          "span_ms_per_call": ms})
+    want = [n for n in STAGE_SPANS
+            if (n != "point_optimizer" or h._structure_max_pts > 0)
+            and (n != "keyframe_step" or keyframes > 0)]
+    bad = {k: v for k, v in ms.items() if not (np.isfinite(v) and v > 0)}
+    if bad or not set(want) <= set(ms) or n_kf != keyframes:
+        fail(f"stage_spans: span ms {ms}, wanted {want}, {n_kf} keyframe "
+             f"steps for {keyframes} keyframes")
+
+
+def lm_fields(tracer) -> dict:
+    """The window solves' LM iterations and the share whose state step a
+    once-seen landmark voided (window_ba.solve_schur), from the counters
+    of a tracer started before the run."""
+    its = tracer.totals.get("lm_iterations", 0)
+    voided = int(tracer.totals.get("lm_voided", 0))
+    return {"backend_lm_iterations": its, "backend_lm_voided": voided,
+            "backend_lm_voided_share": voided / max(its, 1)}
 
 
 def host_rig_phase(smi: str, kind: str, cams: list, T_body_cams: list,
@@ -3142,7 +3151,7 @@ def multidevice_phase(smi: str, device: str = "cuda") -> dict:
 # warm-ups) and 2 calls a stage and a BA solve, so the script stays inside
 # its time; ``--only bench`` runs it at bench.py's sizes
 BENCH_REDUCED = ["--frames", "32", "--warmup", "20", "--slam-frames", "28",
-                 "--slam-warmup", "16", "--stage-reps", "2", "--ba-reps", "2"]
+                 "--slam-warmup", "16", "--ba-reps", "2"]
 
 
 def bench_phase(smi: str, argv: list) -> dict:

@@ -38,6 +38,7 @@ from svo_pro_universal_tpu_torch.frontend.imu_handler import ImuWindow
 from svo_pro_universal_tpu_torch.frontend.map import insert_keyframe
 from svo_pro_universal_tpu_torch.utils.indexing import (
     argsort_stable, segment_sum, set_drop, topk_stable)
+from svo_pro_universal_tpu_torch.utils.perf import Tracer, traced
 from svo_pro_universal_tpu_torch.utils.robust import masked_median
 from svo_pro_universal_tpu_torch.utils.transform import SE3, quat_rotate
 
@@ -106,9 +107,14 @@ class DeviceBackend:
     def __init__(self, cam_focal, T_cam_body: SE3, num_keyframes: int = 5,
                  max_landmarks: int = 256, max_obs_per_kf: int = 120,
                  imu_params=None, opts: Optional[wba.BAOptions] = None,
-                 backend_cfg=None, device=None):
+                 backend_cfg=None, device=None,
+                 tracer: Optional[Tracer] = None):
         """``backend_cfg`` (a :class:`config.BackendOptions`) supplies every
-        tunable below when given, as in the JAX package."""
+        tunable below when given, as in the JAX package. ``tracer`` is the
+        owning pipeline's (``utils.perf``; a new one, off, when None): the
+        backend's spans and its counters ``backend_solves``,
+        ``lm_iterations`` and ``lm_voided`` (the LM iterations whose state
+        step ``solve_schur`` voided, a device count) go there."""
         bc = backend_cfg
         self.device = resolve_device(device)
         self.S = num_keyframes
@@ -144,10 +150,7 @@ class DeviceBackend:
         self.align_max_rel_std = getattr(bc, "align_max_rel_std", 0.13)
         self.align_damping = getattr(bc, "align_damping", 0.5)
         self.align_min_dt = getattr(bc, "align_min_dt", 0.2)
-        # diagnostics over the backend's life: LM iterations run (host) and
-        # those whose state step ``solve_schur`` voided (device, no read)
-        self.lm_iterations = 0
-        self.lm_voided = torch.zeros((), dtype=torch.long, device=self.device)
+        self.tracer = tracer if tracer is not None else Tracer()
         # the host API's window count and keyframe times
         # (add_keyframe_device)
         self.n_states = 0
@@ -170,6 +173,7 @@ class DeviceBackend:
             pending_scale=torch.ones((), device=dev))
 
     # ------------------------------------------------------------------
+    @traced("backend_absorb")
     def _add_keyframe(self, st: DeviceBackendState, k: int, dt_prev: float,
                       T_cam_world: SE3, lids, bearings, valid, pool_pos,
                       imu_win: ImuWindow, use_imu: bool,
@@ -318,9 +322,7 @@ class DeviceBackend:
         packed IMU window on the device and ``packed_host`` its host copy;
         the keyframe factor integrates its samples after ``rel_kf`` (the
         previous state's time relative to the frame), the buffer's those
-        after the buffer's newest slot. Adds the LM iterations run and
-        those whose state step was voided to ``lm_iterations`` /
-        ``lm_voided``."""
+        after the buffer's newest slot."""
         raw = packed_raw_mask(packed_host)
         iw, steps = masked_window(packed, packed_host,
                                   raw & (packed_host[:, 0] > F32(rel_kf)))
@@ -334,13 +336,17 @@ class DeviceBackend:
                     packed: torch.Tensor, packed_host: np.ndarray,
                     use_imu: bool, is_kf: bool):
         """``_step_program`` past the choice of the keyframe factor's
-        samples (``iw``, its ``steps``); the buffer reads ``packed``."""
+        samples (``iw``, its ``steps``); the buffer reads ``packed``. Counts
+        the solve, its LM iterations and those it voided in the tracer."""
+        tr = self.tracer
         st = self._add_keyframe(st, k, dt_prev, T_cam_world, lids, bearings,
                                 valid, pool_pos, iw, use_imu, steps)
-        w, _, n_void = wba.optimize(st.window, self.T_cam_body, self.focal,
-                                    self.opts)
-        self.lm_iterations += self.opts.max_iter
-        self.lm_voided = self.lm_voided + n_void
+        with tr.span("window_solve"):
+            w, _, n_void = wba.optimize(st.window, self.T_cam_body,
+                                        self.focal, self.opts)
+        tr.count("backend_solves")
+        tr.count("lm_iterations", self.opts.max_iter)
+        tr.count("lm_voided", n_void)
         st = st._replace(window=w)
         st = self._align_buffer_step(st, k, F32(ts), packed, packed_host,
                                      is_kf)
@@ -351,6 +357,7 @@ class DeviceBackend:
         T_new = self.T_cam_body.compose(SE3(w.q[k], w.p[k]).inverse())
         return st, T_new, chi2_vis
 
+    @traced("align_buffer")
     def _align_buffer_step(self, st: DeviceBackendState, k: int,
                            ts: np.float32, packed: torch.Tensor,
                            packed_host: np.ndarray,
@@ -441,12 +448,13 @@ class DeviceBackend:
         return st._replace(window=wba.tree_where(fire, rescaled, w_diag),
                            abuf_p=abuf_p, pending_scale=a_app, abuf_rel=rel)
 
+    @traced("marginalize")
     def _marginalize_program(self, st: DeviceBackendState
                              ) -> DeviceBackendState:
         """Slide the window AND the per-state obs segments by one."""
         mok = self.mok
         w = wba.marginalize_oldest(st.window, self.T_cam_body, self.focal,
-                                   self.opts)
+                                   self.opts, tracer=self.tracer)
 
         def roll_seg(x):
             return torch.cat([x[mok:], torch.zeros_like(x[:mok])], dim=0)

@@ -34,7 +34,7 @@ Marginalization stays single-device.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.func import jacfwd, vmap
@@ -42,6 +42,7 @@ from torch.func import jacfwd, vmap
 from svo_pro_universal_tpu_torch.backend import imu_factor as imu_mod
 from svo_pro_universal_tpu_torch.parallel.mesh import FEATURE_AXIS
 from svo_pro_universal_tpu_torch.utils.indexing import segment_sum, set_drop
+from svo_pro_universal_tpu_torch.utils.perf import Tracer
 from svo_pro_universal_tpu_torch.utils.transform import (
     SE3, quat_conjugate, quat_multiply, quat_normalize, quat_to_matrix, skew,
     so3_exp, so3_log)
@@ -624,13 +625,16 @@ def optimize(w: Window, T_cam_body: SE3, focal,
 
 
 def marginalize_oldest(w: Window, T_cam_body: SE3, focal,
-                       opts: BAOptions = BAOptions()) -> Window:
+                       opts: BAOptions = BAOptions(),
+                       tracer: Optional[Tracer] = None) -> Window:
     """Slide the window: absorb state 0 into the dense prior, shift the
     states down (reference applyMarginalizationStrategy estimator.cpp:632,
     marginalization_error.hpp:67-329). The IMU factor 0→1, the existing
     prior and the reprojection information of landmarks that lose their
     multi-view support (< 2 remaining observations, which are absorbed and
-    removed) are linearized before state 0 is Schur-complemented out."""
+    removed) are linearized before state 0 is Schur-complemented out.
+    ``eigh``, which reads its info back, is a read of ``tracer`` where
+    one is given (``utils.perf``)."""
     S, L = w.S, w.L
     D = S * DOF
     dev, f32 = w.q.device, w.q.dtype
@@ -697,7 +701,11 @@ def marginalize_oldest(w: Window, T_cam_body: SE3, focal,
     # In float64: LAPACK's float32 syevd fails to converge on some of these
     # marginals (cond ~1e7) once the window's states step
     H_marg = 0.5 * (H_marg + H_marg.T)
-    eigval, eigvec = torch.linalg.eigh(H_marg.to(torch.float64))
+    H64 = H_marg.to(torch.float64)
+    if tracer is None:
+        eigval, eigvec = torch.linalg.eigh(H64)
+    else:
+        eigval, eigvec = tracer.read(lambda: torch.linalg.eigh(H64))
     eigval = torch.clamp(eigval, min=0.0)
     H_marg = ((eigvec * eigval[None]) @ eigvec.T).to(f32)
 

@@ -3,8 +3,7 @@ repository's ``bench.py``.
 
     python3 -m svo_pro_universal_tpu_torch.bench [--batch 8] [--no-slam]
         [--no-stages] [--no-ba] [--device cuda] [--frames 140] [--warmup 20]
-        [--slam-frames 160] [--slam-warmup 16] [--stage-reps 32]
-        [--ba-reps 24]
+        [--slam-frames 160] [--slam-warmup 16] [--ba-reps 24]
 
 Prints ONE JSON line with bench.py's keys and definitions (bench.py:159-418):
 
@@ -23,9 +22,9 @@ Prints ONE JSON line with bench.py's keys and definitions (bench.py:159-418):
   (``slam_options``) on its closed loop (160 frames, 16 warm-up, degrade
   seed 11): frames/s over the timed frames' wall time, TRACKING count,
   ``slam_stats()``, Sim3 ATE and path length.
-- ``stages_ms`` and ``roofline``: ``utils.stage_profile.profile_frontend``
-  on the VIO run's final state (32 calls a stage), and
-  ``roofline_summary`` at one H100's memory rate.
+- ``stages_ms``: the mean host ms a call of each span of the VIO run's
+  tracer (``utils.perf.Tracer``, started before its first frame, so the
+  bootstrap's spans are there too): the stages as the run made them.
 - ``ba_solve_ms`` and ``ba_iters_per_s``: bench.py's window
   (``synthetic_ba_window(S=8, 200 landmarks, L=256, No=1024, 120 a
   state)``, ``BAOptions(max_iter=3)``, focal 460), the mean of 24 solves
@@ -71,7 +70,7 @@ from svo_pro_universal_tpu_torch.ops import _cuda
 from svo_pro_universal_tpu_torch.parallel.sharded_ba import (
     comms_volume_per_solve)
 from svo_pro_universal_tpu_torch.testing import synthetic as syn
-from svo_pro_universal_tpu_torch.utils import stage_profile
+from svo_pro_universal_tpu_torch.utils import perf
 from svo_pro_universal_tpu_torch.utils.transform import SE3
 
 VIO_FRAMES = 140                   # bench.py:186-187
@@ -81,7 +80,6 @@ SLAM_WARMUP = 16
 FEED_BATCH = 8                     # bench.py:90 (SVO_BENCH_BATCH)
 BASELINE_FPS = 20.0                # the EuRoC camera rate (bench.py:256)
 TRACKING_SHARE = 0.9               # bench.py:250
-STAGE_REPS = 32                    # bench.py:363
 BA_REPS = 24                       # bench.py:404
 BA_WINDOW = dict(S=8, n_landmarks=200, L=256, No=1024, obs_per_state=120)
 BA_ITERS = 3
@@ -102,7 +100,7 @@ VIO_KEYS = ("metric", "value", "unit", "vs_baseline", "config", "feed_batch",
 SLAM_KEYS = ("fps", "n_tracking", "n_keyframes", "n_loops_closed",
              "last_loop_to", "lc_db_size", "gm_landmarks", "lc_best_sim",
              "pgo_saturated", "lc_diag", "ate_m", "traj_len_m")
-STAGE_KEYS = ("stages_ms", "roofline")
+STAGE_KEYS = ("stages_ms",)
 BA_KEYS = ("ba_solve_ms", "ba_iters_per_s", "dcn_comms")
 
 
@@ -221,9 +219,24 @@ def host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def cuda_event_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn`` on the card: one warm-up call, then CUDA events
+    around each of ``reps`` calls, one synchronization at the end."""
+    fn()
+    events = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
 def timer_for(device: torch.device):
-    return (stage_profile.cuda_event_ms if device.type == "cuda"
-            else host_ms)
+    return cuda_event_ms if device.type == "cuda" else host_ms
 
 
 def kernel_launches() -> dict:
@@ -274,6 +287,8 @@ def vio_section(args, dev: torch.device) -> tuple[dict, VioRun]:
     n, warmup = args.frames, args.warmup
     poses, frames, imu_meas = syn.bench_sequence(n, 7, dev)
     run = VioRun(cam, vio_config(), imu_meas, dev, n)
+    if not args.no_stages:
+        run.pipe.tracer.start()
     _cuda.reset_counts()
     run.feed_batched(frames, 0, warmup, args.batch)
     run.pipe.block()
@@ -321,18 +336,11 @@ def slam_section(args, dev: torch.device) -> tuple[dict, dict]:
     return out | trajectory_fields(mats, meta, poses, se3=False), launches
 
 
-def stages_section(pipe, dev: torch.device, reps: int) -> dict:
-    """bench.py:352-380 on the VIO run's final state."""
-    w = pipe.world
-    prof = stage_profile.profile_frontend(
-        pipe, w.ring, w.pool, w.last_frame, w.depth_state, reps=reps,
-        timer=timer_for(dev))
-    roof = stage_profile.roofline_summary(prof, syn.BENCH_H, syn.BENCH_W,
-                                          pipe.cfg.n_pyr_levels)
-    return {"stages_ms": {k: round(v, 3) for k, v in prof.items()},
-            "roofline": {k: {kk: round(vv, 4) if isinstance(vv, float)
-                             else vv for kk, vv in d.items()}
-                         for k, d in roof.items()}}
+def stages_section(pipe) -> dict:
+    """bench.py:352-380's stage times: the mean ms a call of each span the
+    VIO run's tracer recorded."""
+    ms = perf.mean_ms(pipe.tracer.take())
+    return {"stages_ms": {k: round(v, 3) for k, v in ms.items()}}
 
 
 def ba_section(dev: torch.device, reps: int) -> dict:
@@ -382,7 +390,8 @@ def parse_args(argv=None):
     p.add_argument("--no-slam", action="store_true",
                    help="skip the SLAM section (SVO_BENCH_SLAM=0)")
     p.add_argument("--no-stages", action="store_true",
-                   help="skip stages_ms / roofline (SVO_BENCH_STAGES=0)")
+                   help="skip stages_ms, and run the VIO section with its "
+                        "tracer off (SVO_BENCH_STAGES=0)")
     p.add_argument("--no-ba", action="store_true",
                    help="skip ba_solve_ms / dcn_comms (SVO_BENCH_BA=0)")
     p.add_argument("--device", default="cuda",
@@ -391,7 +400,6 @@ def parse_args(argv=None):
     p.add_argument("--warmup", type=int, default=VIO_WARMUP)
     p.add_argument("--slam-frames", type=int, default=SLAM_FRAMES)
     p.add_argument("--slam-warmup", type=int, default=SLAM_WARMUP)
-    p.add_argument("--stage-reps", type=int, default=STAGE_REPS)
     p.add_argument("--ba-reps", type=int, default=BA_REPS)
     args = p.parse_args(argv)
     if not (0 < args.warmup < args.frames
@@ -412,7 +420,7 @@ def main(argv=None) -> dict:
     if not args.no_slam:
         out["slam"], out["launches"]["slam"] = slam_section(args, dev)
     if not args.no_stages:
-        out |= stages_section(run.pipe, dev, args.stage_reps)
+        out |= stages_section(run.pipe)
     if not args.no_ba:
         out |= ba_section(dev, args.ba_reps)
     print(json.dumps(out), flush=True)

@@ -58,6 +58,7 @@ from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia_mod
 from svo_pro_universal_tpu_torch.ops import structure_optimizer as so_mod
 from svo_pro_universal_tpu_torch.utils.indexing import (
     argsort_stable, set_drop, set_drop_2d, take0, topk_stable)
+from svo_pro_universal_tpu_torch.utils.perf import Tracer, traced
 from svo_pro_universal_tpu_torch.utils.robust import masked_median
 from svo_pro_universal_tpu_torch.utils.transform import (
     SE3, matrix_to_quat_np, quat_to_matrix, se3_log)
@@ -182,6 +183,9 @@ class StagePrograms:
                 f"one of {DETECTOR_TYPES}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the spans and counters of this object's frames (off until a
+        # caller starts it; utils.perf)
+        self.tracer = Tracer()
         if self.device.type == "cuda":
             # the dense ZMSSD scan is a cuDNN depthwise conv; TF32 there
             # (cuDNN's default) flips argmin near-ties, so keep full f32
@@ -235,6 +239,7 @@ class StagePrograms:
                              else torch.float32).reshape(arr.shape)
         return img_d, aux_d
 
+    @traced("pyramid_creation")
     def _pyramid(self, img) -> torch.Tensor:
         """The pyramid of one image (host array, uploaded as it is, or a
         device tensor)."""
@@ -306,6 +311,7 @@ class StagePrograms:
         on."""
         return []
 
+    @traced("sparse_img_align")
     def _stage_align(self, ring, pool, last_frame, cur_pyramid, T_prior_rel,
                      extra=None):
         """Stage 1: sparse image alignment vs the last frame, jointly over
@@ -342,6 +348,7 @@ class StagePrograms:
                        .compose(T_body_cam).compose(last_frame.T_cam_world))
         return T_cur_world, align_stats
 
+    @traced("reproject")
     def _stage_reproject(self, ring, pool, cur_frame, T_cur_world, ov):
         """Stage 2: reproject map landmarks/seeds and match their patches.
         Returns (frame, rep)."""
@@ -378,6 +385,7 @@ class StagePrograms:
             seed_ref_idx=head(cur_frame.seed_ref_idx, rep.seed_ref_idx))
         return frame, rep
 
+    @traced("pose_optimizer")
     def _stage_pose(self, ring, pool, frame):
         """Stage 3: motion-only pose refinement. Returns
         (frame, po_res, xyz_cur, has_cur)."""
@@ -409,53 +417,55 @@ class StagePrograms:
         max_pts = self._structure_max_pts
         if max_pts <= 0:
             return pool
-        lid = frame.landmark_id
-        has_lm = (lid >= 0) & frame.valid_mask()
-        lidc = torch.clamp(lid, 0, pool.capacity - 1)
-        obs_kf = pool.obs_kf[lidc]                     # [N, O]
-        obs_idx = pool.obs_idx[lidc]
-        okf = torch.clamp(obs_kf, 0, ring.capacity - 1)
-        oidx = torch.clamp(obs_idx, 0, self.max_fts - 1)
-        f_obs = ring.frames.f[okf, oidx]               # [N, O, 3]
-        T_obs = ring.frames.T_cam_world.index(okf)
-        obs_ok = (obs_kf >= 0) & ring.valid[okf]
-        enough = torch.sum(obs_ok.long(), dim=-1) >= 2
-        # parallax gate: only points whose observations span ≥ 8%
-        # baseline-to-depth are re-triangulated
-        cam_pos = T_obs.inverse().t                    # [N, O, 3]
-        X = pool.pos[lidc]
-        depth_o = torch.clamp(torch.linalg.norm(X[:, None, :] - cam_pos,
-                                                dim=-1), min=1e-6)
-        pdist = torch.linalg.norm(cam_pos[:, :, None, :]
-                                  - cam_pos[:, None, :, :], dim=-1)
-        pair_ok = obs_ok[:, :, None] & obs_ok[:, None, :]
-        max_base = torch.amax(torch.where(pair_ok, pdist, 0.0), dim=(1, 2))
-        parallax_ok = max_base > 0.08 * torch.amin(
-            torch.where(obs_ok, depth_o, float("inf")), dim=-1)
-        cand = has_lm & enough & parallax_ok & ~pool.fixed[lidc]
-        n = lidc.shape[0]
-        if max_pts < n:
-            age = pool.last_structure_optim[lidc].to(torch.float32)
-            _, sel_rows = topk_stable(torch.where(cand, -age,
-                                                  float("-inf")), max_pts)
-            chosen = set_drop(torch.zeros((n,), dtype=torch.bool,
-                                          device=self.device),
-                              sel_rows, True) & cand
-        else:
-            chosen = cand
-        so_res = so_mod.optimize_points(
-            pool.pos[lidc], f_obs, T_obs, obs_ok, chosen, n_iter=5)
-        widx = torch.where(chosen, lidc, pool.capacity)
-        # the frame's ms stamp as XLA converts it: to int32, saturating (at
-        # EuRoC's epoch, 1.4e12 ms, torch's CPU cast would wrap to -2³¹
-        # and rank the points just optimized first)
-        now_i = torch.clamp((frame.timestamp * 1000.0).to(torch.float64),
-                            -2.0 ** 31, 2.0 ** 31 - 1).long()
-        return pool._replace(
-            pos=set_drop(pool.pos, widx, so_res.xyz),
-            last_structure_optim=set_drop(pool.last_structure_optim, widx,
-                                          now_i))
+        with self.tracer.span("point_optimizer"):
+            lid = frame.landmark_id
+            has_lm = (lid >= 0) & frame.valid_mask()
+            lidc = torch.clamp(lid, 0, pool.capacity - 1)
+            obs_kf = pool.obs_kf[lidc]                     # [N, O]
+            obs_idx = pool.obs_idx[lidc]
+            okf = torch.clamp(obs_kf, 0, ring.capacity - 1)
+            oidx = torch.clamp(obs_idx, 0, self.max_fts - 1)
+            f_obs = ring.frames.f[okf, oidx]               # [N, O, 3]
+            T_obs = ring.frames.T_cam_world.index(okf)
+            obs_ok = (obs_kf >= 0) & ring.valid[okf]
+            enough = torch.sum(obs_ok.long(), dim=-1) >= 2
+            # parallax gate: only points whose observations span ≥ 8%
+            # baseline-to-depth are re-triangulated
+            cam_pos = T_obs.inverse().t                    # [N, O, 3]
+            X = pool.pos[lidc]
+            depth_o = torch.clamp(torch.linalg.norm(X[:, None, :] - cam_pos,
+                                                    dim=-1), min=1e-6)
+            pdist = torch.linalg.norm(cam_pos[:, :, None, :]
+                                      - cam_pos[:, None, :, :], dim=-1)
+            pair_ok = obs_ok[:, :, None] & obs_ok[:, None, :]
+            max_base = torch.amax(torch.where(pair_ok, pdist, 0.0), dim=(1, 2))
+            parallax_ok = max_base > 0.08 * torch.amin(
+                torch.where(obs_ok, depth_o, float("inf")), dim=-1)
+            cand = has_lm & enough & parallax_ok & ~pool.fixed[lidc]
+            n = lidc.shape[0]
+            if max_pts < n:
+                age = pool.last_structure_optim[lidc].to(torch.float32)
+                _, sel_rows = topk_stable(torch.where(cand, -age,
+                                                      float("-inf")), max_pts)
+                chosen = set_drop(torch.zeros((n,), dtype=torch.bool,
+                                              device=self.device),
+                                  sel_rows, True) & cand
+            else:
+                chosen = cand
+            so_res = so_mod.optimize_points(
+                pool.pos[lidc], f_obs, T_obs, obs_ok, chosen, n_iter=5)
+            widx = torch.where(chosen, lidc, pool.capacity)
+            # the frame's ms stamp as XLA converts it: to int32, saturating (at
+            # EuRoC's epoch, 1.4e12 ms, torch's CPU cast would wrap to -2³¹
+            # and rank the points just optimized first)
+            now_i = torch.clamp((frame.timestamp * 1000.0).to(torch.float64),
+                                -2.0 ** 31, 2.0 ** 31 - 1).long()
+            return pool._replace(
+                pos=set_drop(pool.pos, widx, so_res.xyz),
+                last_structure_optim=set_drop(pool.last_structure_optim, widx,
+                                              now_i))
 
+    @traced("depth_filter")
     def _stage_seeds(self, ring, cur_pyramid, T_cur_world, depth_scalars,
                      ov):
         """Stage 5: depth-filter update of the ring's seeds, compacted to
@@ -501,6 +511,7 @@ class StagePrograms:
             ftype=set_drop(r_ftype, widx, upd.ftype).reshape(K, Fn))
         return ring._replace(frames=frames), upd
 
+    @traced("kf_policy")
     def _stage_kf_policy(self, ring, pool, frame, ov):
         """Keyframe-policy signals (reference needNewKf :1012-1121).
         Returns dict(med_disparity, kf_too_close)."""
@@ -534,6 +545,7 @@ class StagePrograms:
         return dict(med_disparity=med_disparity,
                     kf_too_close=torch.any(close))
 
+    @traced("tracking_step")
     def _tracking_step(self, ring, pool, last_frame, cur_frame, T_prior_rel,
                        depth_scalars, extra=None):
         """Sparse align → reproject → pose opt → structure opt → seed
@@ -568,6 +580,7 @@ class StagePrograms:
             depth_median=z_med, depth_min=z_min)
         return ring, pool, frame, stats
 
+    @traced("keyframe_step")
     def _keyframe_step(self, ring, pool, frame, depth_scalars):
         """Upgrade converged seeds to landmarks, detect new seeds, insert
         the keyframe (reference upgradeSeedsToFeatures :828-898 +
@@ -620,8 +633,10 @@ class StagePrograms:
         frame = frame._replace(
             is_keyframe=torch.ones((), dtype=torch.bool, device=dev))
         ring = insert_keyframe(ring, frame, new_slot)
+        self.tracer.count("keyframes")
         return ring, pool, frame, torch.sum(converged.long()), n_new
 
+    @traced("klt")
     def _klt_track(self, ref_frame, cur_pyramid, px_ref, valid,
                    px_init=None):
         """Pyramidal KLT with a bidirectional consistency check: a track
@@ -756,7 +771,7 @@ class FrameHandlerMono(StagePrograms):
         parts = [torch.stack([v.to(torch.float64) for v in values])]
         parts += [T.inverse().as_matrix().reshape(-1).to(torch.float64)
                   for T in poses]
-        out = torch.cat(parts).cpu().numpy()
+        out = np.asarray(self.tracer.read(torch.cat(parts)), np.float64)
         self.host_reads += 1
         n = len(values)
         mats = [out[n + 16 * i:n + 16 * (i + 1)].reshape(4, 4).astype(
@@ -797,17 +812,17 @@ class FrameHandlerMono(StagePrograms):
     def add_image(self, img, timestamp: float) -> FrameResult:
         """Feed one image (uint8 [H, W], uploaded as uint8)."""
         self.frame_count += 1
-        if self.stage == Stage.TRACKING:
-            res = self._process_tracking(img, timestamp)
-            self._last_ts = timestamp
-            return res
-        frame = self._make_frame(img, timestamp, self.frame_count)
-        if self.stage == Stage.FIRST_FRAME:
-            out = self._process_first_frame(frame)
-        elif self.stage == Stage.INITIALIZING:
-            out = self._process_init(frame)
-        else:
-            out = self._process_reloc(frame)
+        with self.tracer.frame(self.frame_count):
+            if self.stage == Stage.TRACKING:
+                out = self._process_tracking(img, timestamp)
+            else:
+                frame = self._make_frame(img, timestamp, self.frame_count)
+                if self.stage == Stage.FIRST_FRAME:
+                    out = self._process_first_frame(frame)
+                elif self.stage == Stage.INITIALIZING:
+                    out = self._process_init(frame)
+                else:
+                    out = self._process_reloc(frame)
         self._last_ts = timestamp
         return out
 
@@ -839,6 +854,7 @@ class FrameHandlerMono(StagePrograms):
         self.stage = Stage.INITIALIZING
         return FrameResult(T, self.stage, n_new, TrackingQuality.GOOD, True)
 
+    @traced("init_step")
     def _process_init(self, frame: FrameState) -> FrameResult:
         """KLT tracks from the first keyframe + RANSAC relative pose
         (reference FivePointInit initialization.cpp:292-347)."""
@@ -866,10 +882,12 @@ class FrameHandlerMono(StagePrograms):
             return FrameResult(T, self.stage, n_ok, TrackingQuality.GOOD,
                                False)
         f_cur = proj.backproject(self.cam, px_cur)
-        res = init_mod.ransac_relative_pose(
-            ref.f, f_cur, ok, self._init_noise(N_HYPOTHESES, self.max_fts),
-            self.cam.focal_length,
-            reproj_thresh_px=cfg.init.reproj_error_thresh)
+        with self.tracer.span("ransac"):
+            res = init_mod.ransac_relative_pose(
+                ref.f, f_cur, ok,
+                self._init_noise(N_HYPOTHESES, self.max_fts),
+                self.cam.focal_length,
+                reproj_thresh_px=cfg.init.reproj_error_thresh)
         T_cur_ref, depths, _ = init_mod.rescale_to_mean_depth(
             res.T_cur_ref, res.depth_ref, res.inliers,
             cfg.init.expected_avg_depth)
@@ -960,6 +978,7 @@ class FrameHandlerMono(StagePrograms):
             return TrackingQuality.BAD
         return TrackingQuality.GOOD
 
+    @traced("reloc_step")
     def _process_reloc(self, frame: FrameState) -> FrameResult:
         """Relocalize against the closest keyframe by re-running tracking
         with it as the reference (reference relocalizeFrame
@@ -1018,7 +1037,7 @@ class FrameHandlerVIO(FrameHandlerMono):
             self.cam.focal_length, self.T_cam_body,
             num_keyframes=cfg.backend.num_keyframes,
             imu_params=imu_params, opts=opts, backend_cfg=cfg.backend,
-            device=self.device)
+            device=self.device, tracer=self.tracer)
         self._last_backend_chi2: Optional[float] = None
 
     def _process_tracking(self, img, timestamp: float) -> FrameResult:
@@ -1027,13 +1046,16 @@ class FrameHandlerVIO(FrameHandlerMono):
         if self._last_backend_chi2 is not None:
             self.stats["backend_chi2"] = self._last_backend_chi2
         if res.is_keyframe:
-            T_new, chi2 = self.backend.add_keyframe_device(
-                timestamp, self.last_frame, self.pool, imu_handler=self.imu)
-            ring, pool, frame, s, _ = self.backend._apply_program(
-                self.backend.state, self.ring, self.pool, self.last_frame,
-                T_new, chi2)
-            self.ring, self.pool, self.last_frame = ring, pool, frame
-            (sf, c2), _ = self._read([s, chi2])     # the backend's read
+            with self.tracer.span("backend_step"):
+                T_new, chi2 = self.backend.add_keyframe_device(
+                    timestamp, self.last_frame, self.pool,
+                    imu_handler=self.imu)
+                with self.tracer.span("backend_apply"):
+                    ring, pool, frame, s, _ = self.backend._apply_program(
+                        self.backend.state, self.ring, self.pool,
+                        self.last_frame, T_new, chi2)
+                self.ring, self.pool, self.last_frame = ring, pool, frame
+                (sf, c2), _ = self._read([s, chi2])  # the backend's read
             # the common-mode scale rescales the host's scene-depth scalars
             # and the constant-velocity model
             self.depth_median *= sf

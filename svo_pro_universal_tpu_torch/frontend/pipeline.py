@@ -47,6 +47,7 @@ from svo_pro_universal_tpu_torch.frontend.map import (
     ring_frame)
 from svo_pro_universal_tpu_torch.ops.pyramid import (
     build_pyramid, image_to_float)
+from svo_pro_universal_tpu_torch.utils.perf import traced
 from svo_pro_universal_tpu_torch.utils.transform import (
     SE3, matrix_to_quat_np, quat_normalize)
 
@@ -150,7 +151,7 @@ class DevicePipelineMono(StagePrograms):
                             ts: float, T_prior_rel: SE3):
         cfg = self.cfg
         frame, n_new_t = self._detect_into_frame(frame, world.depth_state)
-        n_new = int(n_new_t)                      # the frame's one read
+        n_new = self.tracer.read(n_new_t)          # the frame's one read
         enough = n_new >= cfg.init.init_min_features
         frame = frame._replace(is_keyframe=torch.full(
             (), enough, dtype=torch.bool, device=self.device))
@@ -172,6 +173,7 @@ class DevicePipelineMono(StagePrograms):
             frames_since_kf=0)
         return world, n_new, True
 
+    @traced("init_step")
     def _branch_init(self, world: WorldState, frame: FrameState,
                      ts: float, T_prior_rel: SE3):
         """Second-keyframe search: KLT tracks + RANSAC relative pose
@@ -187,7 +189,7 @@ class DevicePipelineMono(StagePrograms):
             init_px=torch.where(ok[:, None], px_cur, world.init_px))
         n_ok_t = torch.sum(ok.long())
         disp_t = init_mod.disparity(ref.px, px_cur, ok)
-        n_ok, disp = torch.stack([n_ok_t.float(), disp_t]).tolist()
+        n_ok, disp = self.tracer.read(torch.stack([n_ok_t.float(), disp_t]))
         n_ok = int(n_ok)                           # the frame's one read
         if n_ok < cfg.init.init_min_tracked:
             # lost too many tracks → restart initialization from scratch
@@ -199,15 +201,17 @@ class DevicePipelineMono(StagePrograms):
             return world._replace(last_frame=frame), n_ok, False
 
         f_cur = proj.backproject(self.cam, px_cur)
-        res = init_mod.ransac_relative_pose(
-            ref.f, f_cur, ok, self._init_noise(world, N_HYPOTHESES,
-                                               self.max_fts),
-            self.cam.focal_length,
-            reproj_thresh_px=cfg.init.reproj_error_thresh)
+        with self.tracer.span("ransac"):
+            res = init_mod.ransac_relative_pose(
+                ref.f, f_cur, ok, self._init_noise(world, N_HYPOTHESES,
+                                                   self.max_fts),
+                self.cam.focal_length,
+                reproj_thresh_px=cfg.init.reproj_error_thresh)
         T_cur_ref, depths, _ = init_mod.rescale_to_mean_depth(
             res.T_cur_ref, res.depth_ref, res.inliers,
             cfg.init.expected_avg_depth)
-        if int(res.n_inliers) < cfg.init.init_min_inliers:   # second read
+        n_inliers = int(self.tracer.read(res.n_inliers))    # second read
+        if n_inliers < cfg.init.init_min_inliers:
             return world._replace(last_frame=frame), n_ok, False
 
         med = cfg.init.expected_avg_depth
@@ -228,9 +232,9 @@ class DevicePipelineMono(StagePrograms):
         ring, pool, tracked, stats = self._tracking_step(
             world.ring, world.pool, world.last_frame, frame, T_prior_rel,
             world.depth_state, self._device_align_extra(world))
-        n_tracked, med_disp, too_close = torch.stack([
+        n_tracked, med_disp, too_close = self.tracer.read(torch.stack([
             stats["n_tracked"].float(), stats["med_disparity"],
-            stats["kf_too_close"].float()]).tolist()   # the frame's one read
+            stats["kf_too_close"].float()]))           # the frame's one read
         n_tracked = int(n_tracked)
         is_kf = is_keyframe(cfg.base, world.frames_since_kf, n_tracked,
                             med_disp, bool(too_close))
@@ -257,6 +261,7 @@ class DevicePipelineMono(StagePrograms):
             prev_n_tracked=n_tracked)
         return world, n_tracked, is_kf
 
+    @traced("reloc_step")
     def _branch_reloc(self, world: WorldState, frame: FrameState,
                       ts: float, T_prior_rel: SE3):
         """Relocalize against the closest keyframe (reference
@@ -267,7 +272,7 @@ class DevicePipelineMono(StagePrograms):
         ring, pool, tracked, stats = self._tracking_step(
             world.ring, world.pool, kf, frame,
             SE3.identity(device=self.device), world.depth_state)
-        n_tracked = int(stats["n_tracked"])             # the frame's one read
+        n_tracked = int(self.tracer.read(stats["n_tracked"]))  # one read
         if n_tracked >= cfg.base.quality_min_fts:
             world = world._replace(
                 stage=Stage.TRACKING.value, ring=ring, pool=pool,
@@ -311,7 +316,9 @@ class DevicePipelineMono(StagePrograms):
         """One frame (uint8 [H, W]) through the stage machine, trace
         appended. ``T_prior_rel`` (default: the constant-velocity model)
         seeds the tracking step's alignment."""
-        pyr = build_pyramid(image_to_float(img, self.device), self.n_levels)
+        with self.tracer.span("pyramid_creation"):
+            pyr = build_pyramid(image_to_float(img, self.device),
+                                self.n_levels)
         frame = make_empty_frame(pyr, self.max_fts,
                                  T_cam_body=self.T_cam_body, timestamp=ts)
         if T_prior_rel is None:
@@ -334,9 +341,11 @@ class DevicePipelineMono(StagePrograms):
         """Feed one image (uint8 [H, W], uploaded as uint8). Returns the
         frame's ``FrameResult`` with ``sync=True``, else None."""
         self.frame_count += 1
-        prior = self._motion_prior(timestamp)
-        self.world, _, _ = self.step(self.world, img,
-                                     self._rel_ts(timestamp), prior)
+        with self.tracer.frame(self.frame_count):
+            with self.tracer.span("upload"):
+                prior = self._motion_prior(timestamp)
+            self.world, _, _ = self.step(self.world, img,
+                                         self._rel_ts(timestamp), prior)
         self._last_ts = timestamp
         if self.sync:
             return self._sync_result()

@@ -146,8 +146,8 @@ class RigPipelineBase(DevicePipelineMono):
             world.ring, frame, torch.zeros((), dtype=torch.long, device=dev)))
         ring, pool, fr, n_lm_t = self._keyframe_landmarks(
             world.ring, world.pool, frame, world)
-        n_new, n_lm = (int(v) for v in torch.stack(
-            [n_new_t, n_lm_t]).tolist())              # the frame's one read
+        n_new, n_lm = (int(v) for v in self.tracer.read(torch.stack(
+            [n_new_t, n_lm_t])))                      # the frame's one read
         enough = (n_new >= cfg.init.init_min_features
                   and n_lm >= cfg.init.init_min_inliers)
         if enough:

@@ -99,7 +99,8 @@ class DevicePipelineVIO(DevicePipelineMono):
                     vi_alignment=False,
                     gravity=(tuple(self._gravity) if self._gravity
                              is not None else (0.0, 0.0, -9.81))),
-                backend_cfg=self.cfg.backend, device=self.device)
+                backend_cfg=self.cfg.backend, device=self.device,
+                tracer=self.tracer)
         return self._backend
 
     def _make_world(self) -> WorldStateVIO:
@@ -136,37 +137,40 @@ class DevicePipelineVIO(DevicePipelineMono):
                     and ts - world.last_kf_ts >= F32(be.temporal_dt))
         if not ((is_kf or temporal) and world.stage == Stage.TRACKING.value):
             return world
-        st, k = world.backend, world.backend_k
-        if k >= be.S:
-            st = be._marginalize_program(st)
-            k -= 1
-        # the factor integrates the IMU window over (last_kf_ts, ts];
-        # packed times are relative to the frame (cam-IMU delay applied by
-        # window_packed)
-        dt_prev = max(ts - world.last_kf_ts, F32(1e-3))
-        # no IMU factor across a tracking outage (stale velocities)
-        have_prev = bool(world.last_kf_ts >= 0
-                         and dt_prev < F32(be.max_imu_gap))
-        fr = world.last_frame
-        st, T_new, chi2 = be._step_program(
-            st, k, dt_prev, ts, fr.T_cam_world, fr.landmark_id, fr.f,
-            fr.valid_mask(), world.pool.pos, world.imu_packed,
-            self._packed_host, world.last_kf_ts - ts, have_prev, is_kf)
-        ring, pool, fr, s, c = be._apply_program(st, world.ring, world.pool,
-                                                 fr, T_new, chi2)
-        # a scale correction rewrites the recorded trajectory too
-        written = (torch.arange(world.trace_t.shape[0], device=self.device)
-                   < world.trace_ptr)[:, None]
-        trace_t = torch.where(written, c[None] + s * (world.trace_t
-                                                      - c[None]),
-                              world.trace_t)
-        return world._replace(
-            backend=st, backend_k=k + 1, last_kf_ts=F32(ts), ring=ring,
-            pool=pool, last_frame=fr, trace_t=trace_t,
-            # common-mode scale: depth scalars + motion model follow
-            depth_state=world.depth_state * s,
-            T_rel_prev=SE3(world.T_rel_prev.q, world.T_rel_prev.t * s),
-            backend_chi2=chi2)
+        with self.tracer.span("backend_step"):
+            st, k = world.backend, world.backend_k
+            if k >= be.S:
+                st = be._marginalize_program(st)
+                k -= 1
+            # the factor integrates the IMU window over (last_kf_ts, ts];
+            # packed times are relative to the frame (cam-IMU delay applied by
+            # window_packed)
+            dt_prev = max(ts - world.last_kf_ts, F32(1e-3))
+            # no IMU factor across a tracking outage (stale velocities)
+            have_prev = bool(world.last_kf_ts >= 0
+                             and dt_prev < F32(be.max_imu_gap))
+            fr = world.last_frame
+            st, T_new, chi2 = be._step_program(
+                st, k, dt_prev, ts, fr.T_cam_world, fr.landmark_id, fr.f,
+                fr.valid_mask(), world.pool.pos, world.imu_packed,
+                self._packed_host, world.last_kf_ts - ts, have_prev, is_kf)
+            with self.tracer.span("backend_apply"):
+                ring, pool, fr, s, c = be._apply_program(
+                    st, world.ring, world.pool, fr, T_new, chi2)
+                # a scale correction rewrites the recorded trajectory too
+                written = (torch.arange(world.trace_t.shape[0],
+                                        device=self.device)
+                           < world.trace_ptr)[:, None]
+                trace_t = torch.where(written, c[None] + s * (world.trace_t
+                                                              - c[None]),
+                                      world.trace_t)
+            return world._replace(
+                backend=st, backend_k=k + 1, last_kf_ts=F32(ts), ring=ring,
+                pool=pool, last_frame=fr, trace_t=trace_t,
+                # common-mode scale: depth scalars + motion model follow
+                depth_state=world.depth_state * s,
+                T_rel_prev=SE3(world.T_rel_prev.q, world.T_rel_prev.t * s),
+                backend_chi2=chi2)
 
     # ------------------------------------------------------------------
     def _aux(self, timestamp: float) -> np.ndarray:
@@ -190,13 +194,16 @@ class DevicePipelineVIO(DevicePipelineMono):
         """One upload, one pass through the state machine."""
         self.frame_count += 1
         m = self._imu_m
-        aux = self._aux(timestamp)
-        img_d, aux_d = self._upload(img, aux)
-        self._packed_host = aux[:m * 8].reshape(m, 8)
-        world = self.world._replace(imu_packed=aux_d[:m * 8].reshape(m, 8))
-        prior = SE3(aux_d[m * 8:m * 8 + 4], world.T_rel_prev.t)
-        self.world, _, _ = self.step(world, img_d, float(aux[m * 8 + 4]),
-                                     prior)
+        with self.tracer.frame(self.frame_count):
+            with self.tracer.span("upload"):
+                aux = self._aux(timestamp)
+                img_d, aux_d = self._upload(img, aux)
+            self._packed_host = aux[:m * 8].reshape(m, 8)
+            world = self.world._replace(
+                imu_packed=aux_d[:m * 8].reshape(m, 8))
+            prior = SE3(aux_d[m * 8:m * 8 + 4], world.T_rel_prev.t)
+            self.world, _, _ = self.step(world, img_d,
+                                         float(aux[m * 8 + 4]), prior)
         self._last_ts = timestamp
 
     def add_images_batched(self, imgs, timestamps) -> None:

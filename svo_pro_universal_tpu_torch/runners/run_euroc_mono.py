@@ -34,7 +34,8 @@ def main(argv=None, on_handler=None) -> common.RunResult:
     ap = common.parser(__doc__, "euroc_mono.yaml", "svo_torch_traj.txt")
     ap.add_argument("--trace-dir", default=None,
                     help="write a per-frame tracefile CSV in the "
-                         "reference's schema (its timing analyzers read it)")
+                         "reference's schema (its timing analyzers read "
+                         "it), its timers from the handler's tracer")
     args = ap.parse_args(argv)
 
     rig = load_rig_yaml(args.calib)
@@ -45,6 +46,8 @@ def main(argv=None, on_handler=None) -> common.RunResult:
     if on_handler is not None:
         on_handler(handler)
     pm = make_frontend_monitor(args.trace_dir) if args.trace_dir else None
+    if pm:
+        handler.tracer.start()
     ds = EurocDataset(args.dataset, png_decoder=args.png_decoder)
     print(f"png decoder: {args.png_decoder}", flush=True)
 
@@ -59,11 +62,9 @@ def main(argv=None, on_handler=None) -> common.RunResult:
         r0 = time.perf_counter()
         img = sample.load_u8()
         read_s += time.perf_counter() - r0
-        if pm:
-            pm.start_timer("frontend_time")
         res = handler.add_image(img, sample.timestamp)
         if pm:
-            pm.stop_timer("frontend_time")
+            pm.timers_from(handler.tracer.take()[-1])
             pm.log("timestamp", sample.timestamp)
             for log, key in TRACE_LOGS:
                 pm.log(log, handler.stats.get(key, 0))

@@ -521,7 +521,7 @@ def test_device_backend_defaults_to_the_card(monkeypatch):
     tb = tdbe.DeviceBackend(torch.tensor(FOCAL), _tcb(),
                             imu_params=trig.ImuParams(), device="cpu")
     assert tb.state.window.q.device.type == "cpu"
-    assert tb.lm_voided.device.type == "cpu"
+    assert tb.focal.device.type == "cpu"
 
 
 def _scene(rng):
@@ -651,12 +651,15 @@ def test_device_backend_programs_match_jax():
 
     sj, Tj, cj = _jax_step(jb, mj, kk - 1, ts, T, lids, f, valid, pool, pk,
                            last)
+    tb.tracer.start()                   # the backend's LM counters
     s_t, Tt, ct = _port_step(tb, convert.backend_state(to_dict(mj), "cpu"),
                              kk - 1, ts, T, lids, f, valid, pool, pk, last)
     assert s_t.abuf_n == int(sj.abuf_n)
     # 4 of the window's 57 landmarks have one view: every LM iteration's
     # state step was voided, and the counters say so
-    assert tb.lm_iterations == 3 and int(tb.lm_voided) == 3
+    counts = tb.tracer.totals
+    assert counts["lm_iterations"] == 3 and int(counts["lm_voided"]) == 3
+    assert counts["backend_solves"] == 1
     assert s_t.abuf_last_ts == np.float32(sj.abuf_last_ts)
     for key in ("obs_valid", "obs_lm", "state_valid", "imu_valid", "zupt",
                 "lm_valid"):

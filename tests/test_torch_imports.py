@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
                  "testing.synthetic", "frontend.slam", "backend.interface",
                  "backend.global_map", "utils.yaml_lite", "io", "viz",
                  "native_loader", "datasets.euroc", "utils.perf",
-                 "utils.stage_profile", "utils.solver", "common.occupancy",
+                 "utils.solver", "common.occupancy",
                  "ops.edge_depth", "runners.run_euroc_vio",
                  "runners.run_euroc_mono", "runners.run_euroc_stereo",
                  "runners.run_image_dir", "runners.run_video",

@@ -1,6 +1,6 @@
-"""Checkpoints, the tracefile monitor, the map exports and the stage
-profile of the port, against the JAX package on the CPU at 160×120 (the
-OneShot textured plane of tests/test_torch_host_mono.py).
+"""Checkpoints, the tracefile monitor and the map exports of the port,
+against the JAX package on the CPU at 160×120 (the OneShot textured plane
+of tests/test_torch_host_mono.py).
 
 - Round trip: 7 frames, ``save_state``, a new handler, ``load_state``, 7
   more frames: every result equal to the uninterrupted run's to the bit.
@@ -14,16 +14,12 @@ OneShot textured plane of tests/test_torch_host_mono.py).
   (timers stubbed to a fixed clock).
 - ``export_ply``'s text equals JAX's; ``export_map_yaml`` of the same map
   loads equal to JAX's document (1e-7); ``dump_map`` writes its files.
-- ``stage_profile.profile_frontend`` runs every stage on the CPU with its
-  timer stubbed, changes no state, and without a timer refuses a state
-  off the card; ``roofline_summary`` gives the H100's floors.
 """
 
 import json
 
 import numpy as np
 import pytest
-import torch
 import yaml
 
 from svo_pro_universal_tpu import io as jio
@@ -38,7 +34,6 @@ from svo_pro_universal_tpu_torch import viz as tviz
 from svo_pro_universal_tpu_torch.frontend.frame_handler import (
     FrameHandlerMono)
 from svo_pro_universal_tpu_torch.utils import perf as tperf
-from svo_pro_universal_tpu_torch.utils import stage_profile
 
 from test_torch_host_mono import gap, same_decisions
 from torch_parity_utils import (camera_dict, jax_host_state, port_config,
@@ -176,32 +171,3 @@ def test_map_exports_match_jax(imgs, tmp_path):
     tviz.dump_map(th, str(tmp_path / "map"))
     assert (tmp_path / "map_landmarks.ply").read_text().startswith("ply")
     assert (tmp_path / "map_trajectory.png").stat().st_size > 1000
-
-
-def test_stage_profile_runs_on_the_cpu(imgs):
-    h = _port()
-    _feed(h, imgs[:N_HALF], 0)
-    calls = []
-
-    def stub(fn, reps):
-        fn()
-        calls.append(reps)
-        return 1.5
-
-    before = [x.clone() for x in tio.leaves(h.ring)]
-    ms = stage_profile.profile_frontend(h, h.ring, h.pool, h.last_frame,
-                                        h._depth_state, reps=3, timer=stub)
-    assert set(ms) == {"pyramid_creation", "sparse_img_align", "reproject",
-                       "pose_optimizer", "point_optimizer", "depth_filter",
-                       "keyframe_step", "frontend_time"}
-    assert calls == [3] * 8 and all(v == 1.5 for v in ms.values())
-    for x, y in zip(tio.leaves(h.ring), before):
-        assert torch.equal(x, y)            # no stage changed the ring
-    roof = stage_profile.roofline_summary(ms, 120, 160, 4)
-    assert set(roof) == {"pyramid_creation", "sparse_img_align"}
-    assert roof["sparse_img_align"]["floor_ms"] == pytest.approx(
-        sum((120 >> lv) * (160 >> lv) * 4 for lv in range(4)) / 3.35e12
-        * 1e3)
-    with pytest.raises(ValueError, match="pass timer="):
-        stage_profile.profile_frontend(h, h.ring, h.pool, h.last_frame,
-                                       h._depth_state)
