@@ -40,12 +40,16 @@ line each:
             N = 768: pose within 1e-4 rad / 1e-4·depth, n_tracked equal.
             fused_evaluate also at N = 90, one rank's share of the
             multidevice alignment (the shape the kernels line reports).
+            pose_gn (optimize_pose) against optimize_pose_plain in every
+            case of syn.POSE_CASES (3 seeds each) within syn.POSE_TOLS,
+            bit for bit from launch to launch; at N = 360 the whole call,
+            the device ms a launch (torch.profiler) and the plain version.
 4. slice    40 frames of a textured plane: TRACKING from frame 0 on,
             n_tracked ≥ quality_min_fts, ≥ 2 keyframes, the gathers
             launched on the path and align_level once per pyramid level of
-            every sparse alignment, the standalone fused_evaluate not at
-            all (counts reset just before the run); frames/s and per-stage
-            ms (CUDA events).
+            every sparse alignment, pose_gn once per pose stage, the
+            standalone fused_evaluate not at all (counts reset just before
+            the run); frames/s and per-stage ms (CUDA events).
    profile  2 frames under torch.profiler: device busy ms and kernel
             launches per frame, idle share, host syncs per frame.
 5. cpu      the same first frames through the port on the CPU; the poses
@@ -305,6 +309,7 @@ from svo_pro_universal_tpu_torch.ops import depth_filter as df_mod
 from svo_pro_universal_tpu_torch.ops import detector as det_mod
 from svo_pro_universal_tpu_torch.ops import edge_depth, interp
 from svo_pro_universal_tpu_torch.ops import matcher as matcher_mod
+from svo_pro_universal_tpu_torch.ops import pose_optimizer as po
 from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
 from svo_pro_universal_tpu_torch.ops import tiles
 from svo_pro_universal_tpu_torch.ops.pyramid import (
@@ -582,7 +587,68 @@ def kernel_cases(bw: float) -> tuple[list, dict]:
     # the multidevice path's)
     main["fused_evaluate"] = cases[-1]
     main["align_level"] = align_cases(bw, cases)
+    main["pose_gn"] = pose_cases(bw, cases)
     return cases, main
+
+
+def pose_cases(bw: float, cases: list) -> dict:
+    """pose_gn (one optimize_pose call on the card) against
+    optimize_pose_plain in every case of syn.POSE_CASES, seeds 0-2, within
+    syn.POSE_TOLS, and a second launch bit for bit. The cell's case (N =
+    360, the benchmark's feature slots) is timed: the whole call (CUDA
+    events), the kernel's device time a launch (torch.profiler over 20
+    calls) and the plain version. Bound: the bytes in and out at the card's
+    bandwidth; in practice one launch's latency. max_abs_err is the largest
+    pose gap, rotation (rad) or translation (m)."""
+    from torch.profiler import ProfilerActivity, profile
+    summary = None
+    for case in syn.POSE_CASES:
+        worst: dict = {}
+        for seed in range(3):
+            fss, T0, opts = syn.pose_problem(case, seed, device="cuda")
+            got = po.optimize_pose(fss, T0, opts)
+            again = po.optimize_pose(fss, T0, opts)
+            want = po.optimize_pose_plain(fss, T0, opts)
+            torch.cuda.synchronize()
+            gaps = syn.pose_gaps(fss[0], opts, got, want)
+            bad = syn.pose_failures(gaps)
+            same = all(torch.equal(a, b) for a, b in zip(
+                [*got.T_body_world, got.inlier[0], *got[2:]],
+                [*again.T_body_world, again.inlier[0], *again[2:]]))
+            if bad or not same:
+                fail(f"pose_gn {case} seed {seed}: kernel vs plain {bad}, "
+                     f"repeats bit for bit: {same}; {gaps}")
+            for k, v in gaps.items():
+                if k not in ("n_inliers_own", "error_before"):
+                    worst[k] = max(worst.get(k, 0), v)
+        case_line = dict(name="pose_gn", case=case,
+                         n=int(fss[0].xyz_world.shape[0]),
+                         max_abs_err=max(worst["rot_rad"], worst["trans_m"]),
+                         **worst)
+        if summary is None:
+            n = case_line["n"]
+            nbytes = n * (3 * 4 + 3 * 4 + 2 * 4 + 8 + 1 + 1) + (
+                4 + 3 + 4 + 3 + 2) * 4 + 9 * 4 + n + 8
+            call = lambda: po.optimize_pose(fss, T0, opts)  # noqa: E731
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    call()
+                torch.cuda.synchronize()
+            dev_us = [getattr(e, "device_time_total", 0) / e.count
+                      for e in prof.key_averages() if "pose_gn" in e.key]
+            case_line |= dict(
+                ms=gs.cuda_ms(call),
+                device_ms=dev_us[0] / 1e3 if dev_us else None,
+                plain_ms=gs.cuda_ms(
+                    lambda: po.optimize_pose_plain(fss, T0, opts), reps=1,
+                    samples=3),
+                bytes=nbytes, bound_ms=nbytes / bw * 1e3, bound_by="bytes",
+                library_ms=None)
+            summary = case_line
+        cases.append(case_line)
+    return summary
 
 
 ALIGN_CAMERAS = {
@@ -804,7 +870,7 @@ def profile_run(run, run_sync, n: int) -> dict:
     for e in kernels:
         for fn in ("gather_tiles_kernel", "gather_tiles_ring_kernel",
                    "fused_evaluate_partials", "fused_evaluate_reduce",
-                   "align_level_kernel"):
+                   "align_level_kernel", "pose_gn_kernel"):
             if fn in e.key and e.count:
                 c, t = port.get(fn, (0, 0.0))
                 port[fn] = (c + e.count, t + e.self_device_time_total)
@@ -3338,6 +3404,10 @@ def main() -> None:
     if counts["fused_evaluate"] != 0:
         fail(f"fused_evaluate launched {counts['fused_evaluate']} times on "
              "the path: the per-iteration evaluates should be gone")
+    n_pose = sum(1 for nm, _, _ in events if nm == "_stage_pose")
+    if n_pose == 0 or counts["pose_gn"] != n_pose:
+        fail(f"pose_gn launched {counts['pose_gn']} times for {n_pose} pose "
+             "stages: one launch a stage")
     # a gross-error check: the fronto-parallel plane leaves lateral motion
     # and rotation nearly ambiguous, so the bound is loose; the CPU phase
     # below is the tight check

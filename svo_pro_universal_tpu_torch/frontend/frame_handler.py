@@ -402,6 +402,8 @@ class StagePrograms:
             po_mod.PoseOptOptions(
                 reproj_thresh_px=cfg.base.poseoptim_thresh,
                 prior_lambda=cfg.base.poseoptim_prior_lambda))
+        if xyz_cur.is_cuda:
+            self.tracer.count("pose_kernel_calls")
         T_cur_world = self.T_cam_body.compose(po_res.T_body_world)
         outlier = frame.valid_mask() & has_cur & ~po_res.inlier[0]
         frame = frame._replace(

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file is compiled on first use by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into its own shared library with
 a plain C interface, loaded with ``ctypes``. The library name carries a hash
-of its source, so an edited source is rebuilt; the build directory
+of its source and of the shared headers (``csrc/*.cuh``), so an edited
+source or header is rebuilt; the build directory
 (``svo_pro_universal_tpu_torch/_build``) is git-ignored. ``build_all``
 starts one ``nvcc`` per source at once and waits for all of them.
 
@@ -44,7 +45,10 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 

@@ -4,22 +4,46 @@ Counterpart of ``svo_pro_universal_tpu/ops/pose_optimizer.py`` (reference
 PoseOptimizer, src/svo/src/pose_optimizer.cpp:40-379). The state is the body
 pose ``T_body_world``, updated left-multiplicatively ``T ← exp(dx)·T``;
 unit-plane errors are whitened by a MAD scale and Tukey-weighted; edgelets
-contribute their 1-D along-gradient component with 2× sigma. The JAX
-``lax.while_loop`` runs for the fixed ``max_iter`` with a ``done`` mask that
-freezes the state (no host read per iteration).
+contribute their 1-D along-gradient component with 2× sigma.
+
+- ``optimize_pose_plain`` — the JAX ``lax.while_loop``
+  (``svo_pro_universal_tpu/ops/pose_optimizer.py:98-183``) in tensor ops,
+  run for the fixed ``max_iter`` with a ``done`` mask that freezes the state
+  (no host read per iteration); any number of feature sets and the prior.
+- ``pose_gn`` (``csrc/pose.cu``) — the same call in one thread block: the
+  MAD scale, the whole keep-best loop and the outlier pass, with no host
+  read. It replaces no Pallas kernel (the JAX loop has none); eager, the
+  plain loop is ~6,000 small kernels a call. It takes what the port's
+  callers pass on the card: one feature set, no engaged prior, N ≤
+  ``POSE_GN_MAX_N``.
+
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises. There is no fallback.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Sequence
 
 import torch
 
 from svo_pro_universal_tpu_torch.cameras import projections as proj
+from svo_pro_universal_tpu_torch.ops import _cuda
 from svo_pro_universal_tpu_torch.ops.tiles import solve_psd_small
 from svo_pro_universal_tpu_torch.utils import robust
 from svo_pro_universal_tpu_torch.utils.transform import (
     SE3, quat_to_matrix, se3_exp, se3_log, skew)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+POSE_GN = _cuda.register(_cuda.Kernel(
+    "pose_gn", "pose.cu", "svo_pose_gn", [_P] * 14 + [_I, _I, _F, _F, _F, _P],
+    "svo_pro_universal_tpu/ops/pose_optimizer.py:98-183 (lax.while_loop)"))
+
+# csrc/pose.cu's kMaxN: the shipped configurations hold 256 or 360 feature
+# slots a frame, and loop verification passes one keyframe's slots
+POSE_GN_MAX_N = 4096
 
 
 class PoseOptOptions(NamedTuple):
@@ -85,7 +109,73 @@ def optimize_pose(feature_sets: Sequence[PoseOptFeatures],
                   T_body_world_init: SE3,
                   opts: PoseOptOptions = PoseOptOptions(),
                   T_prior: SE3 | None = None) -> PoseOptResult:
-    """Batched motion-only GN (reference run:40-95)."""
+    """Motion-only GN (reference run:40-95): :func:`optimize_pose_plain` on
+    the CPU, one ``pose_gn`` launch on the card (module docstring)."""
+    dev = T_body_world_init.q.device
+    if dev.type == "cpu":
+        return optimize_pose_plain(feature_sets, T_body_world_init, opts,
+                                   T_prior)
+    if dev.type != "cuda":
+        raise ValueError(f"optimize_pose: unsupported device {dev}")
+    tensors = pose_gn_inputs(feature_sets, T_body_world_init, opts, T_prior)
+    n = tensors[0].shape[0]
+    out = torch.empty((9,), dtype=torch.float32, device=dev)
+    inlier = torch.empty((n,), dtype=torch.bool, device=dev)
+    n_in = torch.empty((), dtype=torch.int64, device=dev)
+    Pt = _cuda.ptr
+    POSE_GN.launch(*[Pt(t) for t in tensors], Pt(out), Pt(inlier), Pt(n_in),
+                   n, opts.max_iter, opts.reproj_thresh_px,
+                   opts.edgelet_sigma_factor, opts.min_update_squared)
+    # views of the buffers the kernel fills: no host read
+    return PoseOptResult(SE3(out[0:4], out[4:7]), [inlier], out[7], out[8],
+                         n_in)
+
+
+def pose_gn_inputs(feature_sets: Sequence[PoseOptFeatures],
+                   T_body_world_init: SE3, opts: PoseOptOptions,
+                   T_prior: SE3 | None = None) -> list[torch.Tensor]:
+    """The tensors whose pointers ``pose_gn`` takes, in its order. Raises
+    on what the kernel does not take: other than one feature set, an
+    engaged prior, N outside 1..``POSE_GN_MAX_N``, another dtype or shape,
+    tensors on two devices."""
+    if len(feature_sets) != 1:
+        raise ValueError(f"optimize_pose: {len(feature_sets)} feature sets; "
+                         "the card's kernel takes one")
+    if T_prior is not None and opts.prior_lambda > 0:
+        raise ValueError("optimize_pose: the card's kernel takes no prior "
+                         "(T_prior with prior_lambda > 0)")
+    fs = feature_sets[0]
+    T = T_body_world_init
+    n = fs.xyz_world.shape[0]
+    if not 1 <= n <= POSE_GN_MAX_N:
+        raise ValueError(f"optimize_pose: {n} features; the card's kernel "
+                         f"takes 1..{POSE_GN_MAX_N}")
+    f32, i64, b = torch.float32, torch.int64, torch.bool
+    args = [("xyz_world", fs.xyz_world, f32, (n, 3)),
+            ("f", fs.f, f32, (n, 3)), ("grad", fs.grad, f32, (n, 2)),
+            ("level", fs.level, i64, (n,)),
+            ("is_edgelet", fs.is_edgelet, b, (n,)),
+            ("valid", fs.valid, b, (n,)),
+            ("T_cam_body.q", fs.T_cam_body.q, f32, (4,)),
+            ("T_cam_body.t", fs.T_cam_body.t, f32, (3,)),
+            ("T_body_world_init.q", T.q, f32, (4,)),
+            ("T_body_world_init.t", T.t, f32, (3,)),
+            ("cam.intrinsics[:2]", fs.cam.intrinsics[:2], f32, (2,))]
+    for name, t, dtype, shape in args:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"optimize_pose: {name} is {t.dtype} "
+                             f"{tuple(t.shape)}; the card's kernel takes "
+                             f"{dtype} {shape}")
+    tensors = [t.contiguous() for _, t, _, _ in args]
+    _cuda.check_cuda("optimize_pose", *tensors)
+    return tensors
+
+
+def optimize_pose_plain(feature_sets: Sequence[PoseOptFeatures],
+                        T_body_world_init: SE3,
+                        opts: PoseOptOptions = PoseOptOptions(),
+                        T_prior: SE3 | None = None) -> PoseOptResult:
+    """Batched motion-only GN in tensor ops (reference run:40-95)."""
     focal = feature_sets[0].cam.focal_length
     dev = T_body_world_init.q.device
     f32 = torch.float32

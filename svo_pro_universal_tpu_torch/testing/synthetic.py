@@ -7,7 +7,8 @@ render_plane_view), written in numpy so it needs neither JAX nor a card, plus
 is a function of the plane point, so a camera can travel any distance
 without running off the texture, seen through a pinhole or through any
 camera model of the port; ``align_problem``, a sparse-alignment input
-built from two such views; ``rotation_gap`` to compare poses; and
+built from two such views; ``pose_problem``, a motion-only pose GN input
+(``POSE_CASES``); ``rotation_gap`` to compare poses; and
 ``tile_case`` and ``tile_gather_mismatches``, which hold the tile
 gathers (origin arithmetic included) to their plain versions; bench.py's
 mono-VIO input (``bench_sequence``: its sphere+plane scene along its
@@ -32,6 +33,7 @@ from svo_pro_universal_tpu_torch.cameras import projections as proj
 from svo_pro_universal_tpu_torch.cameras.rig import load_rig_yaml
 from svo_pro_universal_tpu_torch.frontend.imu_handler import ImuWindow
 from svo_pro_universal_tpu_torch.ops import cuda_tiles
+from svo_pro_universal_tpu_torch.ops import pose_optimizer as po
 from svo_pro_universal_tpu_torch.ops import sparse_img_align as sia
 from svo_pro_universal_tpu_torch.ops.pyramid import (
     build_pyramid, image_to_float)
@@ -490,6 +492,146 @@ def rotation_gap(qa, qb) -> float:
     w = a[0] * b[0] + a[1:] @ b[1:]                 # conj(a) * b
     v = a[0] * b[1:] - b[0] * a[1:] - np.cross(a[1:], b[1:])
     return float(2.0 * np.arctan2(np.linalg.norm(v), abs(w)))
+
+
+# cases of pose_problem: the benchmark cell's mix of feature slots, edgelets,
+# coarse levels, invalid slots, points behind the camera, N not a multiple
+# of pose.cu's block width, a start at the true pose (the loop stops on its
+# first round), no valid feature (the medians are the float32 max), and
+# loop verification's unit-plane problem (backend/loop_closing.verify_pose)
+POSE_CASES = ("cell", "edgelets", "levels", "invalid", "behind", "ragged",
+              "early_stop", "no_valid", "verify")
+# inlier flags of the kernel and the plain version may differ only where the
+# plain pose's pixel error lies this close to the threshold
+POSE_BAND_PX = 1e-3
+# pose_gn against optimize_pose_plain (pose_gaps' keys). Float32 sums in
+# another order, and nvcc's fused multiply-adds, move chi2 by ~1e-6 of
+# itself; where the keep-best test compares two chi2 that close, one side
+# keeps one more small step (measured on an H100 over 6 seeds of every
+# POSE_CASES case: at most 1.1e-5 rad, 3.0e-5 m, after-median 1.4e-3 px).
+# The medians after follow the pose (1e-4 rad at 460 px is 0.046 px); the
+# medians before see the initial pose, where only the rounding of each
+# residual differs: 1e-4 of the value (measured 7e-6), plus POSE_BEFORE_PX
+# for residuals near zero, a few float32 ulps of a unit-plane coordinate
+# (|u| <= 1) at 460 px (a start at the true pose measured 3.4e-7 px on a
+# median of 1.4e-5 px).
+POSE_TOLS = {"rot_rad": 1e-4, "trans_m": 2e-4, "error_after_gap": 0.046,
+             "inlier_flips_outside_band": 0}
+POSE_BEFORE_REL = 1e-4
+POSE_BEFORE_PX = 1e-4
+
+
+def pose_problem(case: str = "cell", seed: int = 0, n: int = 360,
+                 device=None):
+    """(feature_sets, T_body_world_init, opts) of one motion-only pose GN
+    call: points 1.5–6 m before a 752×480 pinhole (460 px focal) on a body
+    with a VIO-like camera extrinsic, bearings measured with 0.5 px noise at
+    the feature's level (×2^level), 5% outliers of up to 30 px, 70% of the
+    slots valid, 15% edgelets, levels mostly 0, a start 1 cm and 0.6°
+    off; ``case`` (one of ``POSE_CASES``) changes one of these."""
+    rng = np.random.default_rng(seed)
+    n = {"ragged": 777}.get(case, n)
+    verify = case == "verify"
+    fx, fy, cx, cy = BENCH_INTRINSICS
+    T_cb = np.eye(4) if verify else pose(0.02, -0.01, 0.005, 0.02, -0.01,
+                                          0.015)
+    T_bw = se3_exp_np(rng.normal(0.0, 0.2, 6))
+    T_cw = T_cb @ T_bw
+    uv = rng.uniform((0.0, 0.0), (752.0, 480.0), (n, 2))
+    depth = rng.uniform(1.5, 6.0, n)
+    if case == "levels":
+        level = np.arange(n) % 4
+    else:
+        level = np.where(rng.uniform(size=n) < 0.7, 0,
+                         rng.integers(1, 4, n))
+    if verify:
+        level = np.zeros(n, np.int64)
+    xyz_cam = np.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy,
+                        np.ones(n)], -1) * depth[:, None]
+    if case == "behind":
+        xyz_cam[rng.uniform(size=n) < 0.2] *= -1.0
+    noise = 0.0 if case == "early_stop" else 0.5
+    meas = uv + rng.normal(0.0, noise, (n, 2)) * (1 << level)[:, None]
+    outlier = rng.uniform(size=n) < (0.2 if verify else 0.05)
+    if case != "early_stop":
+        meas[outlier] += rng.uniform(-30.0, 30.0, (int(outlier.sum()), 2))
+    f = np.stack([(meas[:, 0] - cx) / fx, (meas[:, 1] - cy) / fy,
+                  np.ones(n)], -1)
+    f /= np.linalg.norm(f, axis=-1, keepdims=True)
+    xyz_world = (np.linalg.inv(T_cw)[:3, :3] @ xyz_cam.T).T \
+        + np.linalg.inv(T_cw)[:3, 3]
+    ang = rng.uniform(0.0, 2.0 * np.pi, n)
+    grad = np.stack([np.cos(ang), np.sin(ang)], -1)
+    edge_share = {"edgelets": 0.6, "verify": 0.0}.get(case, 0.15)
+    is_edgelet = rng.uniform(size=n) < edge_share
+    valid_share = {"invalid": 0.2, "no_valid": 0.0, "verify": 0.5}.get(
+        case, 0.7)
+    valid = rng.uniform(size=n) < valid_share
+    if verify:
+        grad[:] = 0.0
+    off = (np.zeros(6) if case == "early_stop"
+           else np.concatenate([rng.normal(0, 0.01 / np.sqrt(3), 3),
+                                rng.normal(0, 0.0105 / np.sqrt(3), 3)]))
+    T_init = se3_exp_np(off) @ T_bw
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    def se3(T):
+        return SE3(matrix_to_quat(t(T[:3, :3])), t(T[:3, 3]))
+
+    cam = (proj.Camera.pinhole(fx, fx, 0.0, 0.0, 10000, 10000, device=device)
+           if verify else proj.Camera.pinhole(fx, fy, cx, cy, 752, 480,
+                                              device=device))
+    fs = po.PoseOptFeatures(
+        xyz_world=t(xyz_world), f=t(f), grad=t(grad),
+        level=t(level, torch.int64), is_edgelet=t(is_edgelet, torch.bool),
+        valid=t(valid, torch.bool), T_cam_body=se3(T_cb), cam=cam)
+    opts = (po.PoseOptOptions(max_iter=15, reproj_thresh_px=2.0) if verify
+            else po.PoseOptOptions())
+    return [fs], se3(T_init), opts
+
+
+def pose_gaps(fs, opts, got, want) -> dict:
+    """How far one optimize_pose result (``got``, the kernel's) lies from
+    another (``want``, the plain version's) on the feature set ``fs``:
+    rotation (rad) and translation (m) of the poses; the features whose
+    inlier flags differ although the plain pose's pixel error lies more than
+    ``POSE_BAND_PX`` from the threshold, and all that differ; the inlier
+    counts' gap and whether the kernel's count is its mask's; the medians'
+    gaps (0 where both are the float32 max)."""
+    T = want.T_body_world
+    e, _, _ = po._residuals(fs, T)
+    err_px = (po._error_norm(fs, e) / (1 << fs.level).to(e.dtype)
+              * fs.cam.focal_length)
+    differ = got.inlier[0] != want.inlier[0]
+    near = (err_px - opts.reproj_thresh_px).abs() <= POSE_BAND_PX
+    return dict(
+        rot_rad=rotation_gap(got.T_body_world.q, T.q),
+        trans_m=float((got.T_body_world.t - T.t).norm()),
+        inlier_flips=int(differ.sum()),
+        inlier_flips_outside_band=int((differ & ~near).sum()),
+        n_inliers_gap=abs(int(got.n_inliers) - int(want.n_inliers)),
+        n_inliers_own=int(got.n_inliers) == int(got.inlier[0].sum()),
+        error_before_gap=abs(float(got.error_before_px)
+                             - float(want.error_before_px)),
+        error_after_gap=abs(float(got.error_after_px)
+                            - float(want.error_after_px)),
+        error_before=float(want.error_before_px))
+
+
+def pose_failures(gaps: dict) -> list[str]:
+    """The entries of a ``pose_gaps`` result outside ``POSE_TOLS``, the
+    before-median's limit or the inlier counts' rules."""
+    bad = [k for k, tol in POSE_TOLS.items() if not gaps[k] <= tol]
+    if not (gaps["error_before_gap"] <= POSE_BEFORE_REL
+            * abs(gaps["error_before"]) + POSE_BEFORE_PX):
+        bad.append("error_before_gap")
+    if not (gaps["n_inliers_own"]
+            and gaps["n_inliers_gap"] <= gaps["inlier_flips"]):
+        bad.append("n_inliers")
+    return bad
 
 
 # cases of tile_case; "nonfinite" is for the card only (the CPU's

@@ -9,7 +9,9 @@ equal. The gathers are held on both copy routes of csrc/tiles.cu (TMA at
 752 wide, plain loads at 754 and for 10×10 tiles) and in both modes (centres, origins
 given), non-finite centres included. Two ranks sharing the card align as
 one rank does (pose 1e-5). ``DevicePipelineMono.block()`` waits for the
-card without a device→host copy."""
+card without a device→host copy. The pose GN kernel against its plain
+version in every case of ``syn.POSE_CASES``, within ``syn.POSE_TOLS``, bit
+for bit from launch to launch, and one launch with no read a call."""
 
 import numpy as np
 import pytest
@@ -309,3 +311,58 @@ def test_two_rank_alignment_on_the_card():
         assert a["launches"]["fused_evaluate"] == 2 * (opts.max_iter + 1)
         assert a["launches"]["align_level"] == 0
         assert a["launches"]["gather_tiles"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", syn.POSE_CASES)
+def test_pose_gn_matches_plain_version(case):
+    """``optimize_pose`` on the card (one ``pose_gn`` launch) against
+    ``optimize_pose_plain`` on the same card, seeds 0–3 of each case of
+    ``syn.POSE_CASES``, within ``syn.POSE_TOLS`` (their reasons beside
+    them); a second launch on the same inputs gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run on the card with `python -m "
+                    "pytest --noconftest tests/test_torch_gpu.py -m gpu`")
+    from svo_pro_universal_tpu_torch.ops import pose_optimizer as po
+    for seed in range(4):
+        fss, T0, opts = syn.pose_problem(case, seed, device="cuda")
+        before = po.POSE_GN.launches
+        got = po.optimize_pose(fss, T0, opts)
+        again = po.optimize_pose(fss, T0, opts)
+        assert po.POSE_GN.launches == before + 2
+        want = po.optimize_pose_plain(fss, T0, opts)
+        gaps = syn.pose_gaps(fss[0], opts, got, want)
+        assert syn.pose_failures(gaps) == [], (seed, gaps)
+        for a, b in zip([*got.T_body_world, *got[1:]],
+                        [*again.T_body_world, *again[1:]]):
+            a, b = (a[0], b[0]) if isinstance(a, list) else (a, b)
+            assert a.dtype == b.dtype and torch.equal(a, b), seed
+
+
+@pytest.mark.gpu
+def test_pose_gn_is_one_launch_and_reads_nothing_back():
+    """One ``optimize_pose`` call on the card at the benchmark cell's shape:
+    a torch.profiler trace holds exactly one CUDA kernel, ``pose_gn``'s, and
+    no device→host copy or stream synchronization."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run on the card with `python -m "
+                    "pytest --noconftest tests/test_torch_gpu.py -m gpu`")
+    from torch.profiler import ProfilerActivity, profile
+    from svo_pro_universal_tpu_torch.ops import pose_optimizer as po
+    fss, T0, opts = syn.pose_problem("cell", 0, device="cuda")
+    po.optimize_pose(fss, T0, opts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        po.optimize_pose(fss, T0, opts)
+        torch.cuda.synchronize()
+    # events one by one, synchronization records left out: the test's own
+    # synchronize may leave a device-side record, which key_averages()
+    # would merge into the host call of the same name
+    events = prof.events()
+    names = sorted({e.name for e in events})
+    kernels = [e.name for e in events if e.device_type.name == "CUDA"
+               and "ynchroniz" not in e.name]
+    assert len(kernels) == 1 and "pose_gn" in kernels[0], (kernels, names)
+    assert not [n for n in names if "DtoH" in n or "Memcpy" in n
+                or n == "cudaStreamSynchronize"], names
